@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Bring-up check of the PyTorch/CUDA port (``stylesinger_torch``) on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line with its elapsed seconds:
+
+0. environment: torch / CUDA versions, the card's name and power limit
+   (``nvidia-smi``), ``nvcc --version``, and the kernels' build (plain
+   ``nvcc`` into ``stylesinger_torch/_build/``) with its time;
+1. each CUDA kernel against its plain PyTorch twin on the card, at the
+   shapes of the flagship main path, with its error, tolerance, time (CUDA
+   events, median of 20), the twin's time and the least time the card could
+   take (``bound_ms``);
+2. three zero-shot requests through ``StyleSingerInfer.infer_once`` on a
+   flagship-width model with seeded random weights;
+   the launch counts of both kernels are reset before and read after, and
+   must be > 0; then request 0 again, timed stage by stage (reference
+   front-end, acoustic model, vocoder);
+3. agreement on a small input: the same tiny model, weights and noise on
+   the card (kernels) and on the CPU (plain twins).
+
+It prints a JSON line with one entry per kernel, the ``nvidia-smi`` line,
+and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero.  Without a CUDA device, or without the package beside it, it
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SEED = 1234
+PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+MEL_TOL = dict(atol=3e-3, rtol=2e-3)
+MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
+
+# the phrase and notes of the JAX package's example_run
+EXAMPLE = dict(
+    ph="x iao j iu w o ch ang j ie m ao AP sh i n i z ui m ei d e j i h ao",
+    notes=[68, 68, 68, 68, 69, 69, 71, 71, 71, 71, 69, 69, 0, 68, 68, 66, 66,
+           68, 68, 69, 69, 68, 68, 66, 66, 64, 64],
+    notes_duration=[0.23, 0.23, 0.23, 0.23, 0.68, 0.68, 0.46, 0.46, 0.23,
+                    0.23, 0.81, 0.81, 0.23, 0.23, 0.23, 0.23, 0.23, 0.23,
+                    0.23, 0.46, 0.46, 0.23, 0.23, 0.23, 0.23, 0.58, 0.58],
+    note_types=[2] * 12 + [1] + [2] * 14,
+)
+
+
+class Failure(Exception):
+    pass
+
+
+def say(phase: str, t0: float, **fields) -> None:
+    body = " ".join(f"{k}={v}" for k, v in fields.items())
+    print(f"[{phase}] t={time.perf_counter() - t0:.2f}s {body}", flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise Failure(what)
+
+
+def cut(inp: dict, n: int) -> dict:
+    return dict(ph=" ".join(inp["ph"].split()[:n]),
+                notes=inp["notes"][:n],
+                notes_duration=inp["notes_duration"][:n],
+                note_types=inp["note_types"][:n])
+
+
+def reference_clip(np, seconds: float = 4.0, sr: int = 48000):
+    """A harmonic tone with vibrato and a soft envelope, from SEED."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 220.0 * 2 ** (rng.uniform(-3, 3) / 12)
+    inst = f0 * (1 + 0.02 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(inst) / sr
+    amps = rng.uniform(0.2, 1.0, 8) / np.arange(1, 9)
+    wav = sum(a * np.sin((h + 1) * phase + rng.uniform(0, 2 * np.pi))
+              for h, a in enumerate(amps))
+    env = np.minimum(1.0, np.minimum(t, seconds - t) / 0.1)
+    wav = 0.3 * wav * env / np.abs(wav).max()
+    return wav.astype(np.float32)
+
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    """Median of per-call CUDA-event times, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_env(t0, torch):
+    from stylesinger_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    nvcc = _build.find_nvcc()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    say("env", t0, python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, gpu=repr(smi),
+        nvcc=repr(ver[-1] if ver else "?"))
+    tb = time.perf_counter()
+    _build.library()
+    built = _build.build_seconds()
+    say("build", t0, route="nvcc->.so->ctypes", sources=len(_build.sources()),
+        build_s=f"{time.perf_counter() - tb:.2f}",
+        compiled=built is not None)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say("precision", t0,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    return smi
+
+
+def phase_mel(t0, torch, np, wav_np):
+    from stylesinger_torch.kernels import mel as melk
+
+    dev = torch.device("cuda")
+    wav = torch.as_tensor(wav_np, device=dev)
+    kw = dict(sample_rate=48000, n_fft=1024, hop_size=256, win_length=1024,
+              n_mels=80, fmin=20.0, fmax=24000.0)
+    consts = melk._constants(48000, 1024, 1024, 80, 20.0, 24000.0, dev)
+    out = melk.mel_spectrogram(wav, **kw)
+    ref = melk.mel_spectrogram_plain(wav, *consts, 256, 1e-6)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = bool(torch.allclose(out, ref, **MEL_TOL))
+    ms = time_ms(torch, lambda: melk.mel_spectrogram(wav, **kw))
+    plain_ms = time_ms(
+        torch, lambda: melk.mel_spectrogram_plain(wav, *consts, 256, 1e-6))
+    n_frames, n_fft, n_freqs, n_mels = out.shape[0], 1024, 513, 80
+    # the least work for a log-mel: a real FFT per frame (2.5 N log2 N)
+    # and the mel projection, not the direct DFT that the kernel runs
+    flops = n_frames * (2.5 * n_fft * math.log2(n_fft)
+                        + 2.0 * n_freqs * n_mels)
+    nbytes = 4.0 * (wav.numel() + 1024 + n_freqs * n_mels
+                    + n_frames * n_mels)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    say("kernel mel", t0, shape=tuple(out.shape), max_abs_err=f"{err:.3e}",
+        tol="atol3e-3/rtol2e-3", ok=ok, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        flop=f"{flops:.3e}", library_ms="none")
+    require(ok and out.shape == ref.shape, f"mel kernel disagrees: {err}")
+    return dict(name="mel_spectrogram", route="cuda",
+                source="stylesinger_torch/csrc/mel.cu",
+                replaces="stylesinger_tpu/ops/mel_pallas.py:78",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def phase_mrf(t0, torch, np, cfg):
+    from stylesinger_torch.kernels import mrf as mrfk
+    from stylesinger_torch.models.hifigan import ResBlock1, _blockify
+
+    dev = torch.device("cuda")
+    rk = tuple(cfg["resblock_kernel_sizes"])
+    rd = tuple(tuple(d) for d in cfg["resblock_dilation_sizes"])
+    block = cfg["mrf_block"]
+    halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rates = cfg["upsample_rates"]
+    worst = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0)
+    for i in range(len(rates)):
+        c = cfg["upsample_initial_channel"] // 2 ** (i + 1)
+        t = cfg["max_frames"] * int(np.prod(rates[: i + 1]))
+        if c > 128 or t < 2 * block:
+            continue
+        x = torch.randn((1, t, c), generator=gen, device=dev)
+        xb, mask, _ = _blockify(x, block, halo)
+        weights = [[tuple((torch.randn((k, c, c), generator=gen, device=dev)
+                           / math.sqrt(k * c),
+                           0.1 * torch.randn((c,), generator=gen,
+                                             device=dev))
+                          for _ in range(2)) for _ in ds]
+                   for k, ds in zip(rk, rd)]
+        kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
+        out = mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
+        ref = mrfk.mrf_blocks_plain(xb, mask, weights, **kw)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        rel = err / scale
+        ms = time_ms(torch, lambda: mrfk.fused_mrf_blocks(xb, mask, weights,
+                                                          **kw), iters=10)
+        plain_ms = time_ms(torch, lambda: mrfk.mrf_blocks_plain(
+            xb, mask, weights, **kw), iters=10)
+        # the group's own work on the true T rows (no halo or padding
+        # rows): 2 convs per dilation, each 2*T*C*C*k FLOP; x read and y
+        # written once, and the weights
+        sum_k = sum(2 * k * len(ds) for k, ds in zip(rk, rd))
+        flops = 2.0 * t * c * c * sum_k
+        nbytes = 4.0 * (2 * t * c + sum(2 * (k * c * c + c) * len(ds)
+                                        for k, ds in zip(rk, rd)))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        say(f"kernel mrf C={c}", t0, xb=tuple(xb.shape),
+            max_abs_err=f"{err:.3e}", max_abs_y=f"{scale:.3e}",
+            rel_err=f"{rel:.3e}", tol=f"{MRF_REL_TOL:g}*max|y|",
+            ok=rel <= MRF_REL_TOL, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{b_ms:.3f}", bound_by=b_by, flop=f"{flops:.3e}",
+            tflops=f"{flops / ms / 1e9:.2f}", library_ms="none")
+        require(out.shape == ref.shape and rel <= MRF_REL_TOL,
+                f"MRF kernel disagrees at C={c}: {rel}")
+        worst = max(worst, err)
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b_ms
+        tot["flops"] += flops
+        tot["bytes"] += nbytes
+    _, by = bound_ms(tot["flops"], tot["bytes"])
+    return dict(name="fused_mrf_blocks", route="cuda",
+                source="stylesinger_torch/csrc/mrf.cu",
+                replaces="stylesinger_tpu/ops/mrf_pallas.py:141",
+                max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"], bound_by=by, library_ms=None)
+
+
+def make_infer(cfg, phones, device, seed, frames=None):
+    """A seeded random-weight model.  Random weights give ~0-frame phones,
+    so the duration head is set to log(1 + frames) (default: the mean note
+    of EXAMPLE) with its weights scaled by 0.1."""
+    import numpy as np
+    import torch
+
+    from stylesinger_torch.inference import StyleSingerInfer
+
+    infer = StyleSingerInfer(cfg, phone_list=phones, device=device)
+    infer.init_random(seed)
+    if frames is None:
+        frames = np.mean(EXAMPLE["notes_duration"]) * \
+            cfg["audio_sample_rate"] / cfg["hop_size"]
+    head = infer.model.dur_predictor.out
+    with torch.no_grad():
+        head.weight.mul_(0.1)
+        head.bias.fill_(float(np.log1p(frames)))
+    return infer
+
+
+def phase_requests(t0, torch, np, cfg, wav_np):
+    from stylesinger_torch.kernels import mel as melk
+    from stylesinger_torch.kernels import mrf as mrfk
+
+    phones = sorted(set(EXAMPLE["ph"].split()))
+    infer = make_infer(cfg, phones, "cuda", SEED)
+    n_params = sum(p.numel() for m in infer.modules()
+                   for p in m.parameters())
+    say("model", t0, hidden=cfg["hidden_size"], enc=cfg["enc_layers"],
+        dec=cfg["dec_layers"], f0_net=f"{cfg['f0_residual_layers']}x"
+        f"{cfg['f0_residual_channels']}", mel_net=f"{cfg['residual_layers']}"
+        f"x{cfg['residual_channels']}", steps=cfg["timesteps"],
+        max_frames=cfg["max_frames"],
+        params=n_params, dur_head="bias=log1p(mean note frames),w*0.1")
+    requests = [cut(EXAMPLE, 27), cut(EXAMPLE, 12), cut(EXAMPLE, 6)]
+    melk.counter.reset()
+    mrfk.counter.reset()
+    for n, req in enumerate(requests):
+        req = dict(req, ref_audio=wav_np)
+        before = (melk.counter.count, mrfk.counter.count)
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        wav = infer.infer_once(req)
+        torch.cuda.synchronize()
+        lat = time.perf_counter() - tr
+        launches = (melk.counter.count - before[0],
+                    mrfk.counter.count - before[1])
+        finite = bool(np.isfinite(wav).all())
+        say(f"request {n}", t0, phones=len(req["ph"].split()),
+            note_s=f"{sum(req['notes_duration']):.2f}",
+            latency_s=f"{lat:.3f}", samples=wav.shape[0],
+            audio_s=f"{wav.shape[0] / cfg['audio_sample_rate']:.2f}",
+            finite=finite, mel_launches=launches[0],
+            mrf_launches=launches[1])
+        require(finite and wav.ndim == 1 and wav.shape[0] > 0,
+                f"request {n}: bad output {wav.shape}")
+        require(launches[0] > 0 and launches[1] > 0,
+                f"request {n}: a kernel was not launched {launches}")
+    launches = {"mel_spectrogram": melk.counter.count,
+                "fused_mrf_blocks": mrfk.counter.count}
+    breakdown(t0, torch, infer, dict(requests[0], ref_audio=wav_np))
+    return launches
+
+
+def breakdown(t0, torch, infer, req):
+    """Where request 0's time goes: each stage ends in a synchronize."""
+    from stylesinger_torch.models.diffusion import Noise
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    batch, t_pre = timed(lambda: infer.preprocess_input(req))
+    noise = Noise(infer.cfg["seed"], infer.device)
+    ret, t_model = timed(lambda: infer.model(**batch, noise=noise))
+    _, t_voc = timed(lambda: infer.vocoder(ret["mel_out"], ret["f0_denorm"],
+                                           noise))
+    say("breakdown request 0", t0, preprocess_s=f"{t_pre:.3f}",
+        acoustic_s=f"{t_model:.3f}", vocoder_s=f"{t_voc:.3f}")
+
+
+class _Replay:
+    """Hands out recorded draws in order, on a given device."""
+
+    def __init__(self, draws, device):
+        self.draws = list(draws)
+        self.device = device
+
+    def _next(self, kind, shape):
+        k, a = self.draws.pop(0)
+        if k != kind or tuple(a.shape) != tuple(shape):
+            raise Failure(f"noise replay out of order: {kind}{shape}")
+        return a.to(self.device).clone()
+
+    def normal(self, shape):
+        return self._next("n", shape)
+
+    def uniform(self, shape):
+        return self._next("u", shape)
+
+
+class _Recorder:
+    def __init__(self, seed):
+        import torch
+
+        self.g = torch.Generator().manual_seed(seed)
+        self.draws = []
+
+    def normal(self, shape):
+        import torch
+
+        a = torch.randn(tuple(shape), generator=self.g)
+        self.draws.append(("n", a))
+        return a.clone()
+
+    def uniform(self, shape):
+        import torch
+
+        a = torch.rand(tuple(shape), generator=self.g)
+        self.draws.append(("u", a))
+        return a.clone()
+
+
+def phase_small(t0, torch, np, wav_np):
+    """Tiny model on the card (kernels) vs on the CPU (plain twins)."""
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.kernels import mel as melk
+    from stylesinger_torch.kernels import mrf as mrfk
+
+    cfg = tiny_test_config(hop_size=64, mrf_block=64)
+    phones = sorted(set(EXAMPLE["ph"].split()))
+    cpu = make_infer(cfg, phones, "cpu", SEED, frames=6)
+    gpu = make_infer(cfg, phones, "cuda", SEED, frames=6)
+    req = dict(cut(EXAMPLE, 6), ref_audio=wav_np[:48000])
+    b_cpu = cpu.preprocess_input(req)
+    before = (melk.counter.count, mrfk.counter.count)
+    b_gpu = gpu.preprocess_input(req)
+    rec = _Recorder(SEED)
+    out_cpu = cpu.forward_model(b_cpu, noise=rec)
+    out_gpu = gpu.forward_model(b_gpu, noise=_Replay(rec.draws, "cuda"))
+    launches = (melk.counter.count - before[0],
+                mrfk.counter.count - before[1])
+    mel_err = float((b_gpu["ref_mels"].cpu() - b_cpu["ref_mels"]).abs().max())
+    errs = {k: float(np.abs(out_gpu[k] - out_cpu[k]).max())
+            if out_gpu[k].shape == out_cpu[k].shape else float("inf")
+            for k in ("mel", "f0", "wav")}
+    say("small input", t0, frames=out_cpu["mel"].shape[0],
+        phones=len(req["ph"].split()),
+        ref_mel_err=f"{mel_err:.2e}",
+        **{f"{k}_err": f"{v:.2e}" for k, v in errs.items()},
+        tol="1e-3", launches=launches)
+    require(out_cpu["mel"].shape[0] > 0, "small input: no frames")
+    require(mel_err <= 3e-3 and all(v <= 1e-3 for v in errs.values()),
+            f"small input: card and CPU disagree {errs}")
+    require(launches[0] > 0 and launches[1] > 0,
+            "small input: a kernel was not launched")
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    if not (REPO / "stylesinger_torch" / "csrc").is_dir():
+        print("chip_smoke: stylesinger_torch/ is not beside this script",
+              file=sys.stderr)
+        return 3
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    sys.path.insert(0, str(REPO))
+    from stylesinger_torch.config import load_config
+
+    try:
+        smi = phase_env(t0, torch)
+        cfg = load_config()
+        wav_np = reference_clip(np, sr=cfg["audio_sample_rate"])
+        kernels = [phase_mel(t0, torch, np, wav_np),
+                   phase_mrf(t0, torch, np, cfg)]
+        launches = phase_requests(t0, torch, np, cfg, wav_np)
+        phase_small(t0, torch, np, wav_np)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    say("total", t0, seconds=f"{time.perf_counter() - t0:.1f}")
+    print(json.dumps({"kernels": [{k: e[k] for k in order}
+                                  for e in kernels]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

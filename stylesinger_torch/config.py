@@ -1,0 +1,226 @@
+"""Configuration of the port: the flagship defaults as Python.
+
+A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
+ported modules read, ``apply_spec_stats`` and ``tiny_test_config``.  The
+flagship configuration *is* the defaults, so no YAML reader is needed:
+``load_config()`` returns a deep copy of ``DEFAULTS`` with keyword
+overrides applied.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+
+class Config(dict):
+    """A dict with attribute access. Values are plain Python scalars/lists."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def copy(self) -> "Config":
+        return Config(dict.copy(self))
+
+    def replace(self, **kwargs: Any) -> "Config":
+        out = self.copy()
+        out.update(kwargs)
+        return out
+
+
+# fmt: off
+SPEC_MIN_48K = [-6.0] * 80
+SPEC_MAX_48K = [
+    0.03640973940491676, 0.039425432682037354, 0.29524752497673035, 0.45784831047058105,
+    0.48333120346069336, 0.5335848927497864, 0.6071611046791077, 0.5474293828010559,
+    0.6076506972312927, 0.5390501022338867, 0.5743886232376099, 0.485751211643219,
+    0.4248744249343872, 0.4843744933605194, 0.43331536650657654, 0.5356124639511108,
+    0.4875929355621338, 0.48614853620529175, 0.44228559732437134, 0.5027499198913574,
+    0.6554337739944458, 0.3469322919845581, 0.33981558680534363, 0.37933868169784546,
+    0.34751009941101074, 0.22094282507896423, 0.252963662147522, 0.18274202942848206,
+    0.1976650059223175, 0.1770155429840088, 0.18206502497196198, 0.1002601608633995,
+    0.18640224635601044, 0.27240633964538574, 0.04153885692358017, -0.010289354249835014,
+    -0.012929759919643402, 0.035185474902391434, 0.18124309182167053, -0.14512233436107635,
+    -0.1778590828180313, -0.20491982996463776, -0.30119436979293823, -0.1735714226961136,
+    -0.1039585992693901, -0.177497997879982, -0.28803232312202454, -0.24049188196659088,
+    -0.4682924747467041, -0.5791841745376587, -0.5170156955718994, -0.6380605697631836,
+    -0.7147259712219238, -0.6607836484909058, -0.7288452982902527, -0.6338580250740051,
+    -0.7092624306678772, -0.8101216554641724, -0.7633087038993835, -0.8251329660415649,
+    -0.6936700940132141, -0.5180960297584534, -0.7972619533538818, -0.807314932346344,
+    -0.7151175737380981, -0.7785399556159973, -0.8709449768066406, -0.8360402584075928,
+    -0.8253681659698486, -0.9778416156768799, -1.12929368019104, -1.3274869918823242,
+    -1.3071579933166504, -1.5234452486038208, -1.6191706657409668, -1.708594799041748,
+    -1.8246771097183228, -1.9193823337554932, -2.1361801624298096, -2.3829283714294434,
+]
+# fmt: on
+
+DEFAULTS: Dict[str, Any] = dict(
+    # --- audio format (reference egs/stylesinger.yaml:29-36) ---
+    audio_sample_rate=48000,
+    hop_size=256,
+    win_size=1024,
+    fft_size=1024,
+    fmin=20,
+    fmax=24000,
+    audio_num_mel_bins=80,
+    # --- sequence bounds ---
+    max_frames=3000,
+    # shape buckets that infer_batch pads its requests to
+    frame_buckets=(256, 512, 1024, 1536, 2048, 3000),
+    token_buckets=(64, 128, 256, 512, 1000, 2000),
+    # --- model switches (reference egs/stylesinger.yaml:20-26) ---
+    emo=True,
+    style=True,
+    umln=True,
+    f0_gen="gmdiff",       # the only F0 generator ported
+    decoder="diffsinger",  # the only decoder ported
+    use_nsf=True,
+    # --- transformer dims (egs/egs_bases/tts/base.yaml:64-76) ---
+    hidden_size=256,
+    enc_layers=4,
+    dec_layers=4,
+    num_heads=2,
+    enc_ffn_kernel_size=9,
+    dec_ffn_kernel_size=9,
+    # --- duration predictor (egs/egs_bases/tts/fs2.yaml) ---
+    predictor_hidden=-1,
+    dur_predictor_kernel=3,
+    dur_predictor_layers=2,
+    # --- pitch ---
+    pitch_type="frame",
+    pitch_norm="log",
+    use_uv=True,
+    f0_mean=400.0,
+    f0_std=100.0,
+    # --- speaker ---
+    use_spk_id=False,
+    # reference quirk: the speaker d-vector is computed from the NATIVE-
+    # rate wav through the 16 kHz front-end (style_binarizer.py:325,
+    # inference/StyleSinger.py:100-104); False = proper 16 kHz resample
+    spk_embed_at_native_rate=True,
+    # --- note encoder ---
+    note_vocab=100,
+    note_type_vocab=5,
+    # --- style / RQ (egs/stylesinger.yaml:102-110) ---
+    nRQ=128,
+    rq_depth=4,
+    guided_sigma=0.3,
+    aligner_layers=2,
+    aligner_ffn_dim=2048,
+    style_wn_layers=4,
+    style_conv_dilations=(1, 1, 1, 1, 1),
+    # --- f0 gmdiff (egs/stylesinger.yaml:112-135) ---
+    f0_timesteps=100,
+    f0_max_beta=0.06,
+    f0_residual_layers=10,
+    f0_residual_channels=192,
+    f0_dilation_cycle_length=4,
+    # strided F0 sampler: only 1 (the 100-step ancestral chain) is ported
+    f0_speedup=1,
+    # --- mel diffusion (egs/stylesinger.yaml:137-147) ---
+    timesteps=100,
+    K_step=100,
+    max_beta=0.06,
+    schedule_type="linear",
+    diff_decoder_type="wavenet",
+    # PLMS / DPM++ mel samplers: not ported, so 1 and 0
+    pndm_speedup=1,
+    dpm_steps=0,
+    residual_layers=20,
+    residual_channels=256,
+    dilation_cycle_length=4,
+    keep_bins=80,
+    spec_min=SPEC_MIN_48K,
+    spec_max=SPEC_MAX_48K,
+    seed=1234,
+    # --- vocoder ---
+    upsample_rates=(8, 8, 2, 2),
+    upsample_kernel_sizes=(16, 16, 4, 4),
+    upsample_initial_channel=512,
+    resblock="1",
+    resblock_kernel_sizes=(3, 7, 11),
+    resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+    harmonic_num=8,
+    # overlap-save block length for the generator's MRF groups (0 = off);
+    # blocked groups of stages with <= 128 channels run the MRF kernel
+    mrf_block=2048,
+    # the generator runs in float32 (the only dtype ported)
+    vocoder_compute_dtype="float32",
+    # --- data ---
+    binary_data_dir="data/binary/style",
+)
+
+
+def load_config(**kwargs: Any) -> Config:
+    """Defaults <- keyword overrides (the flagship is ``load_config()``)."""
+    cfg = Config(json.loads(json.dumps(DEFAULTS)))  # deep copy
+    cfg.update(kwargs)
+    apply_spec_stats(cfg, set(kwargs))
+    return cfg
+
+
+def apply_spec_stats(cfg: Config, explicit: Optional[set] = None) -> Config:
+    """Opt-in per-dataset diffusion bounds: when ``use_data_spec_stats`` is
+    true and the binarizer wrote ``<binary_data_dir>/spec_stats.json``
+    (per-bin train-mel min/max), swap them in for the hand-made yaml tables
+    the reference ships (egs/stylesinger.yaml:142-143).
+
+    Explicit ``spec_min``/``spec_max`` overrides or kwargs win over the
+    data stats (``explicit`` = keys the user set on the CLI/call)."""
+    if not cfg.get("use_data_spec_stats"):
+        return cfg
+    if explicit and ("spec_min" in explicit or "spec_max" in explicit):
+        print("| spec_min/spec_max set explicitly; skipping "
+              "spec_stats.json swap")
+        return cfg
+    fn = os.path.join(cfg.get("binary_data_dir", ""), "spec_stats.json")
+    if os.path.exists(fn):
+        with open(fn) as f:
+            stats = json.load(f)
+        cfg["spec_min"] = stats["spec_min"]
+        cfg["spec_max"] = stats["spec_max"]
+    return cfg
+
+
+def tiny_test_config(**kwargs: Any) -> Config:
+    """A miniature config for fast unit tests."""
+    cfg = load_config()
+    cfg.update(
+        hidden_size=32,
+        enc_layers=1,
+        dec_layers=1,
+        num_heads=2,
+        enc_ffn_kernel_size=3,
+        dec_ffn_kernel_size=3,
+        f0_residual_layers=1,
+        f0_residual_channels=16,
+        residual_layers=1,
+        residual_channels=16,
+        timesteps=4,
+        K_step=4,
+        f0_timesteps=4,
+        nRQ=8,
+        rq_depth=2,
+        aligner_layers=1,
+        aligner_ffn_dim=32,
+        style_wn_layers=2,
+        style_conv_dilations=(1,),
+        audio_num_mel_bins=16,
+        keep_bins=16,
+        upsample_rates=(4, 4, 2, 2),
+        upsample_kernel_sizes=(8, 8, 4, 4),
+        upsample_initial_channel=16,
+        harmonic_num=2,
+        max_frames=64,
+        frame_buckets=(32, 64),
+        token_buckets=(8, 16),
+    )
+    cfg.update(kwargs)
+    return cfg

@@ -1,0 +1,115 @@
+"""DiffWave-style denoisers (port of ``stylesinger_tpu/models/diffnet.py``):
+``DiffNet`` (mel) and ``DDiffNet`` (joint f0 + uv), batch-first."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from stylesinger_torch.models.common import Conv
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal diffusion-step embedding: t [B] -> [B, dim]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000) * torch.arange(
+        half, device=t.device, dtype=torch.float32) / (half - 1))
+    args = t.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+class DiffusionStepMLP(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.fc1 = nn.Linear(dim, 4 * dim)
+        self.fc2 = nn.Linear(4 * dim, dim)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.fc2(mish(self.fc1(timestep_embedding(t, self.dim))))
+
+
+class ResidualBlock(nn.Module):
+    """Gated dilated-conv residual block."""
+
+    def __init__(self, channels: int, cond_dim: int, dilation: int):
+        super().__init__()
+        self.channels = channels
+        self.diffusion_projection = nn.Linear(channels, channels)
+        self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation)
+        self.conditioner_projection = Conv(cond_dim, 2 * channels, 1)
+        self.output_projection = Conv(channels, 2 * channels, 1)
+
+    def forward(self, x, cond, step_emb):
+        c = self.channels
+        y = x + self.diffusion_projection(step_emb)[:, None, :]
+        y = self.dilated_conv(y) + self.conditioner_projection(cond)
+        y = torch.sigmoid(y[..., :c]) * torch.tanh(y[..., c:])
+        y = self.output_projection(y)
+        return (x + y[..., :c]) / math.sqrt(2.0), y[..., c:]
+
+
+class _Stack(nn.Module):
+    """The residual stack shared by both denoisers."""
+
+    def __init__(self, channels: int, cond_dim: int, out_dims: int,
+                 residual_layers: int, dilation_cycle_length: int):
+        super().__init__()
+        self.residual_layers = residual_layers
+        self.mlp = DiffusionStepMLP(channels)
+        for i in range(residual_layers):
+            setattr(self, f"residual_{i}", ResidualBlock(
+                channels, cond_dim, 2 ** (i % dilation_cycle_length)))
+        self.skip_projection = Conv(channels, channels, 1)
+        self.output_projection = Conv(channels, out_dims, 1)
+
+    def run(self, x, t, cond):
+        step_emb = self.mlp(t)
+        skips = 0.0
+        for i in range(self.residual_layers):
+            x, skip = getattr(self, f"residual_{i}")(x, cond, step_emb)
+            skips = skips + skip
+        x = F.relu(self.skip_projection(
+            skips / math.sqrt(self.residual_layers)))
+        return self.output_projection(x)
+
+
+class DiffNet(_Stack):
+    """Mel denoiser: spec [B, T, M], t [B], cond [B, T, H] -> eps."""
+
+    def __init__(self, in_dims: int = 80, cond_dim: int = 256,
+                 residual_layers: int = 20, residual_channels: int = 256,
+                 dilation_cycle_length: int = 4):
+        super().__init__(residual_channels, cond_dim, in_dims,
+                         residual_layers, dilation_cycle_length)
+        self.input_projection = Conv(in_dims, residual_channels, 1)
+
+    def forward(self, spec, t, cond):
+        return self.run(F.relu(self.input_projection(spec)), t, cond)
+
+
+class DDiffNet(_Stack):
+    """Joint f0 + uv denoiser: f0 [B, T, 1], uv int [B, T], t [B], cond,
+    nonpadding [B, T] -> [B, T, 1 + num_classes]."""
+
+    def __init__(self, in_dims: int = 1, num_classes: int = 2,
+                 cond_dim: int = 256, residual_layers: int = 10,
+                 residual_channels: int = 192,
+                 dilation_cycle_length: int = 4):
+        super().__init__(residual_channels, cond_dim, in_dims + num_classes,
+                         residual_layers, dilation_cycle_length)
+        self.input_projection = Conv(in_dims, residual_channels // 2, 1)
+        self.uv_embed = nn.Embedding(num_classes, residual_channels // 2)
+
+    def forward(self, f0, uv, t, cond, nonpadding):
+        mask = nonpadding[..., None]
+        x = torch.cat([self.input_projection(f0), self.uv_embed(uv)],
+                      dim=-1) * mask
+        return self.run(x, t, cond) * mask

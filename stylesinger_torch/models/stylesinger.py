@@ -1,0 +1,256 @@
+"""StyleSinger acoustic model, inference path (port of
+``stylesinger_tpu/models/stylesinger.py`` at ``infer=True, use_diff=True``).
+
+FS2 phoneme encoder + note encoder -> spk/emo projection -> durations ->
+static-length ``mel2ph`` -> UMLN (identity at inference) -> residual style
+adaptor (WN + ConvBlocks + RQ + prosody aligner) -> dual joint f0 + uv
+diffusion with the MIDI +-3 semitone clip -> FFT decoder -> shallow mel
+diffusion.  Options the flagship does not use (strided F0 sampler, PLMS or
+DPM++ mel samplers, ProDiff, conv pitch predictors, speaker ids) are not
+ported and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from stylesinger_torch.dsp.pitch import denorm_f0, f0_to_coarse
+from stylesinger_torch.models import diffusion as diff
+from stylesinger_torch.models.common import (
+    DurationPredictor, Embedding, FastspeechDecoder, FastspeechEncoder,
+    SinusoidalPositionalEmbedding,
+)
+from stylesinger_torch.models.diffnet import DDiffNet, DiffNet
+from stylesinger_torch.models.fs2 import expand_states, predict_mel2ph
+from stylesinger_torch.models.style import LocalStyleAdaptor, ProsodyAligner
+from stylesinger_torch.models.umln import UMLN
+
+_LF0_MIN = 6.0
+_LF0_MAX = 10.0
+DVEC_DIM = 256  # d-vector width of the GE2E encoders
+
+
+def minmax_norm_lf0(x: torch.Tensor,
+                    uv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = torch.clamp_max(x, _LF0_MAX)
+    normed = (x - _LF0_MIN) / (_LF0_MAX - _LF0_MIN) * 2 - 1
+    if uv is not None:
+        normed = torch.where(uv > 0, torch.zeros_like(normed), normed)
+    return normed
+
+
+def minmax_denorm_lf0(x: torch.Tensor,
+                      uv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    denormed = (x + 1) / 2 * (_LF0_MAX - _LF0_MIN) + _LF0_MIN
+    if uv is not None:
+        denormed = torch.where(uv > 0, torch.zeros_like(denormed), denormed)
+    return denormed
+
+
+class NoteEncoder(nn.Module):
+    """MIDI pitch emb + type emb (both * sqrt(H)) + linear duration."""
+
+    def __init__(self, hidden: int, n_vocab: int = 100, n_types: int = 5):
+        super().__init__()
+        self.scale = math.sqrt(hidden)
+        self.emb = Embedding(n_vocab, hidden)
+        self.type_emb = Embedding(n_types, hidden)
+        self.dur_ln = nn.Linear(1, hidden)
+
+    def forward(self, note, note_dur, note_type):
+        return (self.emb(note) * self.scale +
+                self.type_emb(note_type) * self.scale +
+                self.dur_ln(note_dur[..., None]))
+
+
+def _check_supported(c: Any) -> None:
+    unsupported = {
+        "f0_gen": c["f0_gen"] != "gmdiff",
+        "decoder": c["decoder"] != "diffsinger",
+        "diff_decoder_type": c.get("diff_decoder_type", "wavenet")
+        != "wavenet",
+        "use_spk_id": bool(c.get("use_spk_id", False)),
+        "rel_pos": bool(c.get("rel_pos", False)),
+        "pitch_type": c["pitch_type"] != "frame",
+        "pndm_speedup": int(c.get("pndm_speedup", 1) or 1) > 1,
+        "dpm_steps": int(c.get("dpm_steps", 0) or 0) > 0,
+        "f0_speedup": int(c.get("f0_speedup", 1)) > 1,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"stylesinger_torch does not port these settings yet: {bad}")
+
+
+class StyleSinger(nn.Module):
+    def __init__(self, cfg: Any, vocab_size: int):
+        super().__init__()
+        _check_supported(cfg)
+        c = self.cfg = cfg
+        h = c["hidden_size"]
+        m = c["audio_num_mel_bins"]
+        self.encoder = FastspeechEncoder(vocab_size, h, c["enc_layers"],
+                                         c["enc_ffn_kernel_size"],
+                                         num_heads=c["num_heads"])
+        self.note_encoder = NoteEncoder(h, c["note_vocab"],
+                                        c["note_type_vocab"])
+        self.spk_embed_proj = nn.Linear(DVEC_DIM, h)
+        if c["emo"]:
+            self.emo_embed_proj = nn.Linear(DVEC_DIM, h)
+        if c["umln"]:
+            self.norm = UMLN(h)
+        if c["style"]:
+            self.style_extractor = LocalStyleAdaptor(
+                h, n_codes=c["nRQ"], rq_depth=c["rq_depth"], mel_bins=m,
+                wn_layers=c.get("style_wn_layers", 4),
+                conv_dilations=tuple(c.get("style_conv_dilations",
+                                           (1, 1, 1, 1, 1))))
+            self.style_pos = SinusoidalPositionalEmbedding(h)
+            self.l1 = nn.Linear(2 * h, h)
+            self.align = ProsodyAligner(
+                h, num_layers=c["aligner_layers"], num_heads=c["num_heads"],
+                ffn_dim=c["aligner_ffn_dim"], guided_sigma=c["guided_sigma"])
+        ph = c["predictor_hidden"] if c["predictor_hidden"] > 0 else h
+        self.dur_predictor = DurationPredictor(
+            h, ph, n_layers=c["dur_predictor_layers"],
+            kernel_size=c["dur_predictor_kernel"])
+        self.pitch_embed = Embedding(300, h, padding_idx=0)
+        for name in ("gm_diffnet", "gm_diffnet_inpainte"):
+            setattr(self, name, DDiffNet(
+                in_dims=1, num_classes=2, cond_dim=h,
+                residual_layers=c["f0_residual_layers"],
+                residual_channels=c["f0_residual_channels"],
+                dilation_cycle_length=c["f0_dilation_cycle_length"]))
+        self.f0_sched = diff.make_schedule(c["f0_timesteps"],
+                                           c["f0_max_beta"], "linear")
+        self.decoder = FastspeechDecoder(h, c["dec_layers"],
+                                         c["dec_ffn_kernel_size"],
+                                         num_heads=c["num_heads"])
+        self.mel_out = nn.Linear(h, m)
+        self.postdiff = DiffNet(
+            in_dims=m, cond_dim=h, residual_layers=c["residual_layers"],
+            residual_channels=c["residual_channels"],
+            dilation_cycle_length=c["dilation_cycle_length"])
+        self.mel_sched = diff.make_schedule(c["timesteps"], c["max_beta"],
+                                            c["schedule_type"])
+        n_cond = m + h + h + (h if c["emo"] else 0) + (h if c["style"] else 0)
+        self.ln_proj = nn.Linear(n_cond, h)
+        kb = c["keep_bins"]
+        for name in ("spec_min", "spec_max"):
+            self.register_buffer(name, torch.as_tensor(
+                np.asarray(c[name], np.float32)[:kb]), persistent=False)
+
+    # ------------------------------------------------------------- style
+    def get_style(self, decoder_inp, ref_mels, ref_f0, tgt_nonpadding):
+        style, _codes = self.style_extractor(ref_mels, ref_f0)
+        ref_nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(torch.float32)
+        style = self.l1(torch.cat([style, self.style_pos(ref_nonpadding)],
+                                  dim=-1))
+        aligned, _loss, _attn = self.align(decoder_inp, style,
+                                           tgt_nonpadding, ref_nonpadding)
+        return aligned
+
+    # ------------------------------------------------------------- pitch
+    def inpaint_pitch(self, inp_agnostic, inp_specific, mel2ph, midi_notes,
+                      noise, ret: Dict):
+        """Dual joint f0 + uv diffusion, averaged; rests forced unvoiced."""
+        c = self.cfg
+        nonpadding = (mel2ph > 0).to(torch.float32)
+        lo = (midi_notes - 3.0 - 69.0) / 12.0 + math.log2(440.0)
+        hi = (midi_notes + 3.0 - 69.0) / 12.0 + math.log2(440.0)
+        lo = torch.clamp(minmax_norm_lf0(lo), -1.0, 1.0)[..., None]
+        hi = torch.clamp(minmax_norm_lf0(hi), -1.0, 1.0)[..., None]
+
+        def fn_a(f0_t, uv_t, t):
+            return self.gm_diffnet(f0_t, uv_t, t, inp_agnostic, nonpadding)
+
+        def fn_b(f0_t, uv_t, t):
+            return self.gm_diffnet_inpainte(f0_t, uv_t, t, inp_specific,
+                                            nonpadding)
+
+        (fa, ua), (fb, ub) = diff.sample_gm_dual(
+            fn_a, fn_b, self.f0_sched, inp_agnostic.shape[1],
+            inp_agnostic.shape[0], noise, dyn_clip=(lo, hi))
+        rest = (midi_notes == 0)[..., None]
+        preds = []
+        for f, u in ((fa, ua), (fb, ub)):
+            p = torch.stack([minmax_denorm_lf0(f[..., 0]), u], dim=-1)
+            forced = torch.cat([p[..., :1], torch.ones_like(p[..., 1:])],
+                               dim=-1)
+            preds.append(torch.where(rest, forced, p))
+        p_agn, p_spec = preds
+        pitch_pred = p_spec / 2 + p_agn / 2
+        ret["pitch_pred"] = pitch_pred
+        uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
+        f0_denorm = denorm_f0(pitch_pred[:, :, 0], uv if c["use_uv"] else None,
+                              pitch_norm=c["pitch_norm"],
+                              f0_mean=c["f0_mean"], f0_std=c["f0_std"],
+                              pitch_padding=mel2ph == 0)
+        ret["f0_denorm"] = f0_denorm
+        return self.pitch_embed(f0_to_coarse(f0_denorm))
+
+    # ----------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, txt_tokens: torch.Tensor, spk_embed: torch.Tensor,
+                emo_embed: torch.Tensor, ref_mels: torch.Tensor,
+                ref_f0: torch.Tensor, note: torch.Tensor,
+                note_dur: torch.Tensor, note_type: torch.Tensor, noise,
+                max_frames: Optional[int] = None) -> Dict:
+        """Zero-shot inference.  Returns mel_out [B, max_frames, M],
+        f0_denorm [B, max_frames], mel2ph, dur, pitch_pred."""
+        c = self.cfg
+        max_frames = max_frames or c["max_frames"]
+        ret: Dict = {}
+        encoder_out = self.encoder(txt_tokens) + self.note_encoder(
+            note, note_dur, note_type)
+        src_nonpadding = (txt_tokens > 0).to(torch.float32)
+        spk = self.spk_embed_proj(spk_embed)[:, None, :]
+        emo = self.emo_embed_proj(emo_embed)[:, None, :] if c["emo"] else 0.0
+
+        log_dur = self.dur_predictor(
+            (encoder_out + spk + emo) * src_nonpadding[..., None],
+            src_nonpadding)
+        ret["dur"] = log_dur
+        mel2ph = predict_mel2ph(log_dur, src_nonpadding, max_frames)
+        ret["mel2ph"] = mel2ph
+        tgt = (mel2ph > 0).to(torch.float32)
+        tgt3 = tgt[..., None]
+        decoder_inp = expand_states(encoder_out, mel2ph)
+        if c["umln"]:
+            decoder_inp = self.norm(decoder_inp, spk + emo)
+
+        style = 0.0
+        if c["style"]:
+            style = self.get_style(decoder_inp, ref_mels, ref_f0, tgt)
+        midi_notes = expand_states(note.to(torch.float32)[:, :, None],
+                                   mel2ph)[..., 0]
+        pitch_embed = self.inpaint_pitch(
+            decoder_inp * tgt3, (decoder_inp + spk + emo + style) * tgt3,
+            mel2ph, midi_notes, noise, ret)
+
+        decoder_inp = decoder_inp + spk + emo + pitch_embed
+        if c["style"]:
+            decoder_inp = decoder_inp + style
+        decoder_inp = decoder_inp * tgt3
+        coarse = self.mel_out(self.decoder(decoder_inp, tgt)) * tgt3
+
+        # shallow diffusion post-net
+        b, t = coarse.shape[:2]
+        feats = [coarse, decoder_inp, spk.expand(b, t, -1)]
+        if c["emo"]:
+            feats.append(emo.expand(b, t, -1))
+        if c["style"]:
+            feats.append(style)
+        cond = self.ln_proj(torch.cat(feats, dim=-1))
+        x = diff.sample_shallow(
+            lambda x_t, t_: self.postdiff(x_t, t_, cond), self.mel_sched,
+            diff.norm_spec(coarse, self.spec_min, self.spec_max), noise,
+            c["K_step"])
+        ret["mel_out"] = diff.denorm_spec(x, self.spec_min,
+                                          self.spec_max) * tgt3
+        return ret

@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: no JAX, flax, PyYAML or JAX package, and
+kernels that build with plain nvcc into a git-ignored directory."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+for name in ("jax", "flax", "yaml", "stylesinger_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import stylesinger_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    stylesinger_torch.__path__, "stylesinger_torch."))
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert callable(smoke.main)
+blocked = [m for m in ("jax", "flax", "yaml", "stylesinger_tpu")
+           if sys.modules.get(m) is not None]
+assert not blocked, blocked
+print(" ".join(names))
+"""
+
+
+def test_port_imports_without_jax_flax_yaml_or_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    names = out.stdout.split()
+    for expected in ("stylesinger_torch.inference", "stylesinger_torch.convert",
+                     "stylesinger_torch.kernels.mel",
+                     "stylesinger_torch.kernels.mrf",
+                     "stylesinger_torch.models.hifigan",
+                     "stylesinger_torch.models.stylesinger"):
+        assert expected in names
+
+
+def test_cuda_sources_have_a_plain_c_interface():
+    sources = sorted((REPO / "stylesinger_torch" / "csrc").glob("*.cu"))
+    assert [s.name for s in sources] == ["mel.cu", "mrf.cu"]
+    for src in sources:
+        text = src.read_text()
+        assert "torch/extension.h" not in text, src
+        assert 'extern "C"' in text, src
+
+
+def test_build_directory_is_git_ignored():
+    from stylesinger_torch.kernels import _build
+
+    ignored = [line.strip() for line in
+               (REPO / ".gitignore").read_text().splitlines()]
+    rel = _build.BUILD_DIR.relative_to(REPO).as_posix()
+    assert f"{rel}/" in ignored or rel in ignored

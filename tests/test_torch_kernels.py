@@ -1,0 +1,124 @@
+"""The port's two kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain twin, which is held against the
+Pallas kernel (interpret mode) and its XLA twin with the tolerances of
+``tests/test_ops.py``.  ``tests/test_torch_cuda.py`` holds each CUDA
+kernel against its twin on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stylesinger_tpu.dsp.mel import wav2mel as jax_wav2mel
+from stylesinger_tpu.models.hifigan import ResBlock1 as JaxResBlock1
+from stylesinger_tpu.models.hifigan import _blockify as jax_blockify
+from stylesinger_tpu.ops.mel_pallas import mel_spectrogram as pallas_mel
+from stylesinger_tpu.ops.mrf_pallas import fused_mrf_blocks as pallas_mrf
+
+from stylesinger_torch.kernels import mel as melk
+from stylesinger_torch.kernels import mrf as mrfk
+from stylesinger_torch.models.hifigan import _blockify, _unblockify
+
+MEL_CASES = {
+    "48k": (48000, 0.3, dict()),
+    "24k": (2048, 1.0, dict(sample_rate=24000, n_fft=512, hop_size=128,
+                            win_length=512, n_mels=40, fmax=12000.0)),
+}
+MRF_CASES = {
+    "C16": (16, 64, 150, (3, 7, 11), ((1, 3, 5),) * 3),
+    "C64": (64, 32, 70, (3, 5), ((1, 2), (1, 3))),
+}
+
+
+def _mel_input(case):
+    n, scale, kw = MEL_CASES[case]
+    wav = np.random.default_rng(11).standard_normal(n).astype(np.float32)
+    return wav * scale, kw
+
+
+@pytest.mark.parametrize("case", sorted(MEL_CASES))
+def test_mel_twin_matches_jax_and_pallas(case):
+    wav, kw = _mel_input(case)
+    ours = melk.mel_spectrogram(torch.as_tensor(wav), **kw).numpy()
+    ref = np.asarray(jax_wav2mel(jnp.asarray(wav), **kw))
+    pallas = np.asarray(pallas_mel(jnp.asarray(wav), interpret=True, **kw))
+    assert ours.shape == ref.shape == pallas.shape
+    np.testing.assert_allclose(ours, ref, atol=3e-3, rtol=2e-3)
+    np.testing.assert_allclose(ours, pallas, atol=3e-3, rtol=2e-3)
+
+
+def _mrf_setup(case):
+    c, block, t, rk, rd = MRF_CASES[case]
+    halo = max(JaxResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    x = np.random.default_rng(c).standard_normal((1, t, c)).astype(np.float32)
+    xb, mask, _ = jax_blockify(jnp.asarray(x), block, halo)
+    blocks = [JaxResBlock1(c, k, d) for k, d in zip(rk, rd)]
+    variables = [b.init(jax.random.PRNGKey(c), xb, mask) for b in blocks]
+    weights = []
+    for v, d in zip(variables, rd):
+        p = v["params"]
+        weights.append([((p[f"conv1_{i}"]["kernel"], p[f"conv1_{i}"]["bias"]),
+                         (p[f"conv2_{i}"]["kernel"], p[f"conv2_{i}"]["bias"]))
+                        for i in range(len(d))])
+    return dict(c=c, block=block, halo=halo, rk=rk, rd=rd, x=x, xb=xb,
+                mask=mask, blocks=blocks, variables=variables,
+                weights=weights)
+
+
+def _torch_weights(weights, device="cpu"):
+    return [[tuple((torch.tensor(np.asarray(w), device=device),
+                    torch.tensor(np.asarray(b), device=device))
+                   for w, b in pair) for pair in rb] for rb in weights]
+
+
+@pytest.mark.parametrize("case", sorted(MRF_CASES))
+def test_mrf_twin_matches_pallas_and_blocked_resblocks(case):
+    s = _mrf_setup(case)
+    kw = dict(kernels=s["rk"], dilations=s["rd"], block=s["block"],
+              halo=s["halo"])
+    halo, block = s["halo"], s["block"]
+    flax_ref = sum(np.asarray(b.apply(v, s["xb"], s["mask"]))
+                   for b, v in zip(s["blocks"], s["variables"]))
+    flax_ref = flax_ref[:, halo:halo + block] / len(s["blocks"])
+    pallas = np.asarray(pallas_mrf(s["xb"], s["mask"], s["weights"],
+                                   interpret=True, **kw))
+    ours = mrfk.fused_mrf_blocks(
+        torch.tensor(np.asarray(s["xb"])),
+        torch.tensor(np.asarray(s["mask"])), _torch_weights(s["weights"]),
+        **kw).numpy()
+    assert ours.shape == flax_ref.shape == pallas.shape
+    np.testing.assert_allclose(ours, flax_ref, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(ours, pallas, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(MRF_CASES))
+def test_blockify_matches_jax(case):
+    s = _mrf_setup(case)
+    xb, mask, t = _blockify(torch.as_tensor(s["x"]), s["block"], s["halo"])
+    np.testing.assert_array_equal(xb.numpy(), np.asarray(s["xb"]))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(s["mask"]))
+    back = _unblockify(xb, 1, s["block"], s["halo"], t)
+    np.testing.assert_array_equal(back.numpy(), s["x"])
+
+
+def test_wrappers_take_the_twin_on_cpu_and_refuse_other_devices():
+    wav = torch.zeros(4096)
+    before = (melk.counter.count, mrfk.counter.count)
+    melk.mel_spectrogram(wav)
+    s = _mrf_setup("C64")
+    kw = dict(kernels=s["rk"], dilations=s["rd"], block=s["block"],
+              halo=s["halo"])
+    mrfk.fused_mrf_blocks(torch.tensor(np.asarray(s["xb"])),
+                          torch.tensor(np.asarray(s["mask"])),
+                          _torch_weights(s["weights"]), **kw)
+    assert (melk.counter.count, mrfk.counter.count) == before
+    with pytest.raises(ValueError, match="device"):
+        melk.mel_spectrogram(torch.zeros(4096, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        mrfk.fused_mrf_blocks(torch.zeros((1, 184, 16), device="meta"),
+                              torch.zeros((1, 184, 1), device="meta"),
+                              [], kernels=(), dilations=(), block=64,
+                              halo=60)
