@@ -9,18 +9,28 @@ Phases, each printed on its own line with its elapsed seconds:
 
 0. environment: torch / CUDA versions, the card's name and power limit
    (``nvidia-smi``), ``nvcc --version``, and the kernels' build (plain
-   ``nvcc`` into ``stylesinger_torch/_build/``) with its time;
+   ``nvcc`` into ``stylesinger_torch/_build/``) with its time and, per
+   kernel, the registers, shared memory and spills ``-Xptxas -v`` reports;
 1. each CUDA kernel against its plain PyTorch twin on the card, at the
-   shapes of the flagship main path, with its error, tolerance, time (CUDA
-   events, median of 20), the twin's time and the least time the card could
-   take (``bound_ms``);
+   shapes of the flagship main path, with its error, tolerance, launches
+   per call, time per call (``ms``: CUDA events around one call, median),
+   the twin's time, and the least time the card could take (``bound_ms``,
+   with the peak it is taken against);
 2. three zero-shot requests through ``StyleSingerInfer.infer_once`` on a
    flagship-width model with seeded random weights;
-   the launch counts of both kernels are reset before and read after, and
-   must be > 0; then request 0 again, timed stage by stage (reference
-   front-end, acoustic model, vocoder);
+   the launch counts of both kernels are reset before and read after: each
+   request must launch the mel kernel once and the MRF kernel once per
+   dilation step of each kernel stage (27 for the flagship); then request 0
+   again, timed stage by stage (reference front-end, acoustic model,
+   vocoder);
 3. agreement on a small input: the same tiny model, weights and noise on
-   the card (kernels) and on the CPU (plain twins).
+   the card (kernels) and on the CPU (plain twins);
+4. device time per call of each kernel and its twin at the shapes of
+   phase 1 (``device_ms``: the durations of the CUDA kernels a call
+   launches, from ``torch.profiler``), host gaps left out.  It runs last,
+   so that no profiler session comes before the timed requests; request
+   0's stage timing is then repeated, to show whether profiling slowed the
+   process.
 
 It prints a JSON line with one entry per kernel, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -30,6 +40,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -40,7 +51,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 1234
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+BUILD_LIMIT_S = 60.0
 MEL_TOL = dict(atol=3e-3, rtol=2e-3)
 MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
 
@@ -108,8 +121,28 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call: the summed durations of the CUDA kernels that
+    ``iters`` calls launch (torch.profiler, CUPTI), over ``iters``, after
+    one warm-up call.  Unlike :func:`time_ms` it leaves out the host's time
+    between launches.  Fails if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    require(total_us > 0, "torch.profiler recorded no device time")
+    return total_us / iters / 1e3
+
+
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -137,9 +170,13 @@ def phase_env(t0, torch):
     tb = time.perf_counter()
     _build.library()
     built = _build.build_seconds()
+    build_s = time.perf_counter() - tb
     say("build", t0, route="nvcc->.so->ctypes", sources=len(_build.sources()),
-        build_s=f"{time.perf_counter() - tb:.2f}",
-        compiled=built is not None)
+        build_s=f"{build_s:.2f}", compiled=built is not None)
+    for line in _build.ptxas_report():
+        say("ptxas", t0, kernel=line)
+    require(build_s < BUILD_LIMIT_S,
+            f"the kernels' build took {build_s:.1f} s")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say("precision", t0,
@@ -156,14 +193,17 @@ def phase_mel(t0, torch, np, wav_np):
     kw = dict(sample_rate=48000, n_fft=1024, hop_size=256, win_length=1024,
               n_mels=80, fmin=20.0, fmax=24000.0)
     consts = melk._constants(48000, 1024, 1024, 80, 20.0, 24000.0, dev)
+    before = melk.counter.count
     out = melk.mel_spectrogram(wav, **kw)
+    per_call = melk.counter.count - before
     ref = melk.mel_spectrogram_plain(wav, *consts, 256, 1e-6)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     ok = bool(torch.allclose(out, ref, **MEL_TOL))
-    ms = time_ms(torch, lambda: melk.mel_spectrogram(wav, **kw))
-    plain_ms = time_ms(
-        torch, lambda: melk.mel_spectrogram_plain(wav, *consts, 256, 1e-6))
+    call = functools.partial(melk.mel_spectrogram, wav, **kw)
+    plain = functools.partial(melk.mel_spectrogram_plain, wav, *consts, 256,
+                              1e-6)
+    ms, plain_ms = time_ms(torch, call), time_ms(torch, plain)
     n_frames, n_fft, n_freqs, n_mels = out.shape[0], 1024, 513, 80
     # the least work for a log-mel: a real FFT per frame (2.5 N log2 N)
     # and the mel projection, not the direct DFT that the kernel runs
@@ -173,15 +213,32 @@ def phase_mel(t0, torch, np, wav_np):
                     + n_frames * n_mels)
     b_ms, b_by = bound_ms(flops, nbytes)
     say("kernel mel", t0, shape=tuple(out.shape), max_abs_err=f"{err:.3e}",
-        tol="atol3e-3/rtol2e-3", ok=ok, ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        tol="atol3e-3/rtol2e-3", ok=ok, launches_per_call=per_call,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, peak="f32 67e12",
         flop=f"{flops:.3e}", library_ms="none")
     require(ok and out.shape == ref.shape, f"mel kernel disagrees: {err}")
-    return dict(name="mel_spectrogram", route="cuda",
-                source="stylesinger_torch/csrc/mel.cu",
-                replaces="stylesinger_tpu/ops/mel_pallas.py:78",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    require(per_call == 1, f"mel: {per_call} launches per call")
+    entry = dict(name="mel_spectrogram", route="cuda",
+                 source="stylesinger_torch/csrc/mel.cu",
+                 replaces="stylesinger_tpu/ops/mel_pallas.py:78",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None)
+    return entry, [("mel", call, plain)]
+
+
+def mrf_stages(cfg, np):
+    """(C, T) of the vocoder stages that run the MRF kernel: C <= 128 and
+    at least two blocks (models/hifigan.py); the vocoder runs at
+    ``max_frames``."""
+    rates = cfg["upsample_rates"]
+    stages = []
+    for i in range(len(rates)):
+        c = cfg["upsample_initial_channel"] // 2 ** (i + 1)
+        t = cfg["max_frames"] * int(np.prod(rates[: i + 1]))
+        if c <= 128 and t >= 2 * cfg["mrf_block"]:
+            stages.append((c, t))
+    return stages
 
 
 def phase_mrf(t0, torch, np, cfg):
@@ -194,14 +251,10 @@ def phase_mrf(t0, torch, np, cfg):
     block = cfg["mrf_block"]
     halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rates = cfg["upsample_rates"]
     worst = 0.0
+    timed = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0)
-    for i in range(len(rates)):
-        c = cfg["upsample_initial_channel"] // 2 ** (i + 1)
-        t = cfg["max_frames"] * int(np.prod(rates[: i + 1]))
-        if c > 128 or t < 2 * block:
-            continue
+    for c, t in mrf_stages(cfg, np):
         x = torch.randn((1, t, c), generator=gen, device=dev)
         xb, mask, _ = _blockify(x, block, halo)
         weights = [[tuple((torch.randn((k, c, c), generator=gen, device=dev)
@@ -211,16 +264,20 @@ def phase_mrf(t0, torch, np, cfg):
                           for _ in range(2)) for _ in ds]
                    for k, ds in zip(rk, rd)]
         kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
+        before = mrfk.counter.count
         out = mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
+        per_call = mrfk.counter.count - before
         ref = mrfk.mrf_blocks_plain(xb, mask, weights, **kw)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         rel = err / scale
-        ms = time_ms(torch, lambda: mrfk.fused_mrf_blocks(xb, mask, weights,
-                                                          **kw), iters=10)
-        plain_ms = time_ms(torch, lambda: mrfk.mrf_blocks_plain(
-            xb, mask, weights, **kw), iters=10)
+        call = functools.partial(mrfk.fused_mrf_blocks, xb, mask, weights,
+                                 **kw)
+        plain = functools.partial(mrfk.mrf_blocks_plain, xb, mask, weights,
+                                  **kw)
+        ms, plain_ms = time_ms(torch, call, 10), time_ms(torch, plain, 10)
+        timed.append((f"mrf C={c}", call, plain))
         # the group's own work on the true T rows (no halo or padding
         # rows): 2 convs per dilation, each 2*T*C*C*k FLOP; x read and y
         # written once, and the weights
@@ -228,27 +285,35 @@ def phase_mrf(t0, torch, np, cfg):
         flops = 2.0 * t * c * c * sum_k
         nbytes = 4.0 * (2 * t * c + sum(2 * (k * c * c + c) * len(ds)
                                         for k, ds in zip(rk, rd)))
-        b_ms, b_by = bound_ms(flops, nbytes)
+        # the kernel runs on the TF32 tensor cores: its bound is their peak
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound_ms(flops, nbytes)
         say(f"kernel mrf C={c}", t0, xb=tuple(xb.shape),
             max_abs_err=f"{err:.3e}", max_abs_y=f"{scale:.3e}",
             rel_err=f"{rel:.3e}", tol=f"{MRF_REL_TOL:g}*max|y|",
-            ok=rel <= MRF_REL_TOL, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{b_ms:.3f}", bound_by=b_by, flop=f"{flops:.3e}",
+            ok=rel <= MRF_REL_TOL, launches_per_call=per_call,
+            ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{b_ms:.3f}", bound_by=b_by, peak="tf32 495e12",
+            f32_fma_bound_ms=f"{f32_ms:.3f}", flop=f"{flops:.3e}",
             tflops=f"{flops / ms / 1e9:.2f}", library_ms="none")
         require(out.shape == ref.shape and rel <= MRF_REL_TOL,
                 f"MRF kernel disagrees at C={c}: {rel}")
+        steps = sum(len(ds) for ds in rd)
+        require(per_call == steps,
+                f"MRF C={c}: {per_call} launches per call, not {steps}")
         worst = max(worst, err)
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += b_ms
         tot["flops"] += flops
         tot["bytes"] += nbytes
-    _, by = bound_ms(tot["flops"], tot["bytes"])
-    return dict(name="fused_mrf_blocks", route="cuda",
-                source="stylesinger_torch/csrc/mrf.cu",
-                replaces="stylesinger_tpu/ops/mrf_pallas.py:141",
-                max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=tot["bound_ms"], bound_by=by, library_ms=None)
+    _, by = bound_ms(tot["flops"], tot["bytes"], PEAK_TF32_FLOPS)
+    entry = dict(name="fused_mrf_blocks", route="cuda",
+                 source="stylesinger_torch/csrc/mrf.cu",
+                 replaces="stylesinger_tpu/ops/mrf_pallas.py:141",
+                 max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=tot["bound_ms"], bound_by=by, library_ms=None)
+    return entry, timed
 
 
 def make_infer(cfg, phones, device, seed, frames=None):
@@ -287,6 +352,9 @@ def phase_requests(t0, torch, np, cfg, wav_np):
         max_frames=cfg["max_frames"],
         params=n_params, dur_head="bias=log1p(mean note frames),w*0.1")
     requests = [cut(EXAMPLE, 27), cut(EXAMPLE, 12), cut(EXAMPLE, 6)]
+    # one MRF launch per dilation step of each kernel stage
+    mrf_expected = len(mrf_stages(cfg, np)) * sum(
+        len(d) for d in cfg["resblock_dilation_sizes"])
     melk.counter.reset()
     mrfk.counter.reset()
     for n, req in enumerate(requests):
@@ -308,15 +376,17 @@ def phase_requests(t0, torch, np, cfg, wav_np):
             mrf_launches=launches[1])
         require(finite and wav.ndim == 1 and wav.shape[0] > 0,
                 f"request {n}: bad output {wav.shape}")
-        require(launches[0] > 0 and launches[1] > 0,
-                f"request {n}: a kernel was not launched {launches}")
+        require(launches == (1, mrf_expected),
+                f"request {n}: launches (mel, MRF) {launches}, expected "
+                f"(1, {mrf_expected})")
     launches = {"mel_spectrogram": melk.counter.count,
                 "fused_mrf_blocks": mrfk.counter.count}
-    breakdown(t0, torch, infer, dict(requests[0], ref_audio=wav_np))
-    return launches
+    req0 = dict(requests[0], ref_audio=wav_np)
+    breakdown(t0, torch, infer, req0)
+    return launches, functools.partial(breakdown, t0, torch, infer, req0)
 
 
-def breakdown(t0, torch, infer, req):
+def breakdown(t0, torch, infer, req, label="breakdown request 0"):
     """Where request 0's time goes: each stage ends in a synchronize."""
     from stylesinger_torch.models.diffusion import Noise
 
@@ -332,8 +402,18 @@ def breakdown(t0, torch, infer, req):
     ret, t_model = timed(lambda: infer.model(**batch, noise=noise))
     _, t_voc = timed(lambda: infer.vocoder(ret["mel_out"], ret["f0_denorm"],
                                            noise))
-    say("breakdown request 0", t0, preprocess_s=f"{t_pre:.3f}",
+    say(label, t0, preprocess_s=f"{t_pre:.3f}",
         acoustic_s=f"{t_model:.3f}", vocoder_s=f"{t_voc:.3f}")
+
+
+def phase_device(t0, torch, timed) -> None:
+    """Device time per call of each kernel's call and of its twin, from
+    torch.profiler.  Runs after the requests, so that no profiler session
+    comes before the timed requests."""
+    for name, call, plain in timed:
+        say(f"device {name}", t0, device_ms=f"{device_ms(torch, call):.4f}",
+            plain_device_ms=f"{device_ms(torch, plain):.4f}",
+            timer="torch.profiler")
 
 
 class _Replay:
@@ -433,10 +513,13 @@ def main() -> int:
         smi = phase_env(t0, torch)
         cfg = load_config()
         wav_np = reference_clip(np, sr=cfg["audio_sample_rate"])
-        kernels = [phase_mel(t0, torch, np, wav_np),
-                   phase_mrf(t0, torch, np, cfg)]
-        launches = phase_requests(t0, torch, np, cfg, wav_np)
+        mel, mel_timed = phase_mel(t0, torch, np, wav_np)
+        mrf, mrf_timed = phase_mrf(t0, torch, np, cfg)
+        kernels = [mel, mrf]
+        launches, again = phase_requests(t0, torch, np, cfg, wav_np)
         phase_small(t0, torch, np, wav_np)
+        phase_device(t0, torch, mel_timed + mrf_timed)
+        again(label="breakdown request 0 after profiling")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-// One fused conv step of a HiFi-GAN MRF group over overlap-save blocks.
+// One dilation step of a HiFi-GAN MRF group over overlap-save blocks, on the
+// tensor cores (wgmma, 3xTF32).
 //
 // Replaces the TPU kernel stylesinger_tpu/ops/mrf_pallas.py::fused_mrf_blocks
 // (body _mrf_kernel).  That kernel runs a whole MRF group (3 ResBlock1 with
@@ -7,158 +8,519 @@
 // 3 blocks and a halo crop) on one [block + 2*halo, C] block held in VMEM.
 //
 // What bounds it on an H100: operations.  A group does 2*k*C*C FLOP per conv
-// and time step (about 2*T*C^2*126 per stage) in f32; at C = 128 that is more
-// than 300 FLOP per byte of input and output.
+// and time step (about 2*T*C^2*126 per stage), more than 300 FLOP per byte of
+// input and output at C = 128.  On the CUDA cores (67 TFLOP/s f32) that alone
+// is about 21 ms for the three vocoder stages; the TF32 tensor cores give
+// 495 TFLOP/s, and 3xTF32 (below) does three products for each one.
 //
-// Design: a whole block and all 18 weight matrices (about 1.1 MB of f32
-// activations at C = 128) do not fit in an SM's 227 KB of shared memory, so
-// this kernel is one conv step, launched 18 times per group by the wrapper
-// (kernels/mrf.py), and the group is not yet fused on the card.  One launch
-// computes, for every block n and output time t in [t_begin, t_begin+t_len):
+// Design.  A whole block and the 18 weight matrices do not fit in an SM's
+// 227 KB of shared memory at C = 128, so the wrapper (kernels/mrf.py) launches
+// this kernel once per dilation step, 9 times per group.  One launch computes
+// for every block n and output time t in [t_begin, t_begin + t_len):
 //
-//   v = bias + sum_{tap, ci} act(x[n, t + (tap - (k-1)/2) * d, ci]) w[tap, ci, co]
-//   act(u) = leaky_relu(u, 0.1) * mask[n, u's time], 0 outside [0, L)
-//   v += res[n, t, co]   (optional residual)
-//   v += acc[n, t, co]   (optional running sum of resblock outputs)
-//   out[n, t - out_off, co] = v * scale
+//   act(u)  = leaky_relu(u, 0.1) * mask[n, time of u], 0 outside [0, L)
+//   h[t']   = act(conv_d(act(x))[t'] + b1)            (conv1, dilation d)
+//   v       = x[t] + conv_1(h)[t] + b2                (conv2, dilation 1)
+//   v      += acc[n, t]                               (optional block sum)
+//   out[n, t - out_off] = v * scale
 //
-// so the residual adds, the 3-block mean and the final halo crop ride in the
-// epilogue.  A block of 256 threads owns 64 time rows x CO output channels.
-// Time is tiled inside each overlap-save block; the activated input rows of
-// the tile plus the conv's reach are staged in shared memory 32 input channels
-// at a time (the activation is applied as they are loaded), and the weights
-// are streamed through shared memory one tap at a time.  Each thread keeps a
-// 4 x CPT register tile of sums.  f32 FMA throughout, no tensor cores yet.
+// A thread block owns R output rows and all C output channels.  It stages the
+// activated input rows it needs (R + (k-1) + (k-1)*d) once in shared memory,
+// computes h over R + k - 1 rows with conv1, writes h over the input tile (h
+// never reaches device memory), and runs conv2 from there.  So a step reads x
+// once and writes its output once, where two separate convs would also write
+// and read h.  The residual, the running block sum, the 1/3 mean and the halo
+// crop ride in the epilogue.
+//
+// Each conv is an implicit GEMM per tap: M = time rows, N = C_out, K = C_in;
+// A is the shared-memory tile shifted by tap * dilation rows, B is W[tap].
+// Each warpgroup issues wgmma.m64nNk8 TF32 with B from shared memory and A
+// from registers: the tile holds f32 values, and each warp loads its A
+// fragments with plain 32-bit shared loads at any row shift (row stride 4 mod
+// 32 words: no bank conflicts) and splits them as it loads them; a tile of
+// both TF32 halves would not fit beside the weights at C = 128.  f32 accuracy
+// is kept by 3xTF32: each operand is split into hi = tf32(a) and
+// lo = tf32(a - hi), and the tensor cores sum lo*hi + hi*lo + hi*hi into an
+// f32 accumulator.  One TF32 product alone would err by about 5e-4 relative
+// (truncated: 1e-3), past the 1e-4 * max|y| check against the f32 twin.  The
+// wrapper splits the weights once per call and lays them out as the
+// shared-memory image wgmma reads (K-major 8 x 16-byte core matrices, both
+// halves of one tap x 32 input channels per chunk).  The chunks stream
+// through a ring of 4 stages with cp.async and one barrier per chunk: while
+// the wgmmas of one chunk run, the next chunk's A fragments are loaded and
+// the two after it are in flight.  The input tile also arrives by cp.async,
+// and the epilogues issue all their loads before their stores.
+//
+// A block is 2 warpgroups, 128 rows x BN = 32, 64 or 128 output channels
+// (C is padded to BN, and K to 32; the wrapper pads the weights with zeros).
+// C > 128 is refused: at BN = 128 the widest tile ((128 + 64) rows x 132
+// words) and the weight ring take 232,448 bytes, all of an SM's 227 KB.  A
+// wider C would need output-channel tiles that share one h.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;      // output time rows per block
-constexpr int kCi = 32;        // input-channel chunk staged at a time
-constexpr int kCiPad = kCi + 1;
+constexpr int kThreads = 256;  // 2 warpgroups, 64 rows each
+constexpr int kBM = 128;       // rows of h per block
+constexpr int kKc = 32;        // input channels per staged weight chunk
 constexpr int kMaxReach = 64;  // (k - 1) * d
+constexpr int kMaxC = 128;
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
-mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                const float* __restrict__ w, const float* __restrict__ bias,
-                const float* __restrict__ res, const float* acc_in,
-                float* out, int L, int C, int k, int d, int t_begin,
-                int t_len, int out_len, int out_off, float scale) {
-  constexpr int kCo = 16 * CPT;
-  __shared__ float xs[(kRows + kMaxReach) * kCiPad];
-  __shared__ float ws[kCi * kCo];
+struct Args {
+  const float* x;       // [nb, L, C]
+  const float* mask;    // [nb, L]
+  const float* w1;      // laid out: [k, kpad / 32, 2, 32 * BN]
+  const float* b1;      // [C]
+  const float* w2;      // laid out, as w1
+  const float* b2;      // [C]
+  const float* acc_in;  // [nb, L, C] or null; may alias out
+  float* out;           // [nb, out_len, C]
+  int L, C, k, d, t_begin, t_len, out_len, out_off;
+  float scale;
+  int vec4;             // C % 4 == 0 and x 16-byte aligned
+};
 
-  const int n = blockIdx.z;
-  const int tb = t_begin + blockIdx.x * kRows;
-  const int co0 = blockIdx.y * kCo;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int half = (k - 1) / 2 * d;
-  const int rows = kRows + (k - 1) * d;
-  const float* xn = x + (size_t)n * L * C;
-  const float* mn = mask + (size_t)n * L;
+constexpr int kStages = 4;     // weight chunks in flight
+// floats of the weight ring: kStages stages of one chunk's {hi, lo} halves
+constexpr int ring_floats(int bn) { return kStages * 2 * kKc * bn; }
 
-  float acc[4][CPT];
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+// x ~= hi + lo with both halves TF32, each truncated (the low 13 mantissa
+// bits cleared): x - hi is exact in f32, and lo's truncation leaves an error
+// of at most 2^-20 |x|.  Two masks and a subtraction: on an H100 the group
+// ran about 9 % faster than with two cvt.rna.tf32.f32 per operand.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// A shared-memory matrix descriptor for B: K-major, no swizzle, 8 x 16-byte
+// core matrices, the next core matrix along K 128 bytes on, the next along N
+// (8 output channels) kKc / 4 core matrices on.
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(kKc / 4 * 128 >> 4) << 32);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float act(float u, float m) {
+  return (u > 0.f ? u : 0.1f * u) * m;
+}
+
+// 16 (4) bytes from global to shared memory with cp.async; zeros where
+// !valid.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Copies chunk q of a laid-out weight (kernels/mrf.py::_kernel_layout:
+// [k, kpad / 32, 2, 32 * BN], chunk q = tap * kpad / 32 + ci / 32, the TF32
+// halves of W[tap, ci0:ci0+32, :BN] in the order wgmma reads them) into dst
+// with cp.async.
+template <int BN>
+__device__ __forceinline__ void stage(float* dst, const float* w, int q) {
+  constexpr int kFloats = 2 * kKc * BN;
+  const float* src = w + (size_t)q * kFloats;
+  for (int i = threadIdx.x * 4; i < kFloats; i += kThreads * 4) {
+    copy16(dst + i, src + i, true);
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  for (int ci0 = 0; ci0 < C; ci0 += kCi) {
-    const int n_ci = min(kCi, C - ci0);
-    __syncthreads();  // previous chunk's readers are done with xs
-    for (int i = threadIdx.x; i < rows * kCi; i += kThreads) {
-      const int r = i / kCi;
-      const int c = i % kCi;
-      const int t = tb - half + r;
-      float v = 0.f;
-      if (c < n_ci && t >= 0 && t < L) {
-        v = xn[(size_t)t * C + ci0 + c];
-        v = (v > 0.f ? v : 0.1f * v) * mn[t];
+// Makes this thread's finished cp.async writes visible to wgmma (the async
+// proxy); a barrier after it makes everyone's.
+template <int N>
+__device__ __forceinline__ void landed() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// This warp's A fragments of one chunk (4 k8 steps), split into TF32
+// halves: rows g and g+8, columns t4 and t4+4 of each k8 step.
+__device__ __forceinline__ void load_a(uint32_t (&ah)[kKc / 8][4],
+                                       uint32_t (&al)[kKc / 8][4],
+                                       const float* p, int S) {
+#pragma unroll
+  for (int kk = 0; kk < kKc / 8; ++kk) {
+    split(p[kk * 8], ah[kk][0], al[kk][0]);
+    split(p[8 * S + kk * 8], ah[kk][1], al[kk][1]);
+    split(p[kk * 8 + 4], ah[kk][2], al[kk][2]);
+    split(p[8 * S + kk * 8 + 4], ah[kk][3], al[kk][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kKc / 8][N]) {
+#pragma unroll
+  for (int i = 0; i < kKc / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// The k8 steps of one chunk, 3 products each (lo*hi, hi*lo, hi*hi), as one
+// wgmma group.  ops: the chunk's hi half, then its lo half.
+template <int BN>
+__device__ __forceinline__ void issue(float (&acc)[BN / 2],
+                                      uint32_t (&ah)[kKc / 8][4],
+                                      uint32_t (&al)[kKc / 8][4],
+                                      const float* ops) {
+  fence_operands(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < kKc / 8; ++kk) {
+    const uint64_t dh = b_desc(ops + kk * 64);
+    wgmma<BN>(acc, al[kk], dh);
+    wgmma<BN>(acc, ah[kk], b_desc(ops + kKc * BN + kk * 64));
+    wgmma<BN>(acc, ah[kk], dh);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// acc += sum over taps and input channels of a_s[row + tap*step][ci] *
+// w[tap][ci][col] for this warpgroup's 64 rows and all columns.  The caller
+// has staged chunk 0 into stage 0 of ring.  The chunks cycle through a ring
+// of kStages stages, with one barrier per chunk: while the wgmmas of chunk q
+// run, each warp loads the A fragments of chunk q + 1 into its other
+// register set, the copies of chunks q + 1 and q + 2 are in flight, and after
+// the barrier chunk q + 3 is copied into the stage that q - 1 used.  Ends
+// with a barrier, so the caller may overwrite a_s and ring afterwards.
+template <int BN>
+__device__ __forceinline__ void conv_pass(float (&acc)[BN / 2],
+                                          const float* a_s, int S,
+                                          const float* w, int k, int step,
+                                          int kpad, float* ring) {
+  constexpr int kStage = 2 * kKc * BN;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+  const float* a_row = a_s + (warp * 16 + g) * S + t4;
+  const int nkc = kpad / kKc;
+  const int nq = k * nkc;
+  auto a_at = [&](int q) {
+    return a_row + (q / nkc) * step * S + q % nkc * kKc;
+  };
+  uint32_t ah[2][kKc / 8][4], al[2][kKc / 8][4];
+
+  for (int q = 1; q < kStages - 1 && q < nq; ++q) {
+    stage<BN>(ring + q * kStage, w, q);
+  }
+  if (nq >= 3) {  // chunk 0 has landed
+    landed<2>();
+  } else if (nq == 2) {
+    landed<1>();
+  } else {
+    landed<0>();
+  }
+  __syncthreads();
+  load_a(ah[0], al[0], a_at(0), S);
+
+  // one chunk; B = q % 2 is known at compile time, so that the register
+  // sets stay in registers
+  auto chunk = [&](auto parity, int q) {
+    constexpr int B = decltype(parity)::value;
+    issue<BN>(acc, ah[B], al[B], ring + q % kStages * kStage);
+    if (q + 1 < nq) {
+      // the wgmmas of q - 1 are done: their register set is free
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs(ah[1 - B]);
+      fence_regs(al[1 - B]);
+      load_a(ah[1 - B], al[1 - B], a_at(q + 1), S);
+      if (q + 2 < nq) {  // chunk q + 1 has landed
+        landed<1>();
+      } else {
+        landed<0>();
       }
-      xs[r * kCiPad + c] = v;
-    }
-    for (int tap = 0; tap < k; ++tap) {
-      __syncthreads();  // xs staged; previous tap's readers are done with ws
-      for (int i = threadIdx.x; i < kCi * kCo; i += kThreads) {
-        const int c = i / kCo;
-        const int o = i % kCo;
-        ws[i] = (c < n_ci && co0 + o < C)
-                    ? w[((size_t)tap * C + ci0 + c) * C + co0 + o]
-                    : 0.f;
-      }
+      // ... for every thread, and stage (q - 1) % kStages is free
       __syncthreads();
-      const float* xrow = xs + (ty * 4 + tap * d) * kCiPad;
-#pragma unroll 8
-      for (int c = 0; c < kCi; ++c) {
-        float a[4];
-        float b[CPT];
+      if (q + kStages - 1 < nq) {
+        stage<BN>(ring + (q + kStages - 1) % kStages * kStage, w,
+                  q + kStages - 1);
+      }
+    }
+  };
+  for (int q = 0; q < nq; q += 2) {
+    chunk(std::integral_constant<int, 0>(), q);
+    if (q + 1 < nq) chunk(std::integral_constant<int, 1>(), q + 1);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(acc);
+  fence_regs(ah[0]);
+  fence_regs(al[0]);
+  fence_regs(ah[1]);
+  fence_regs(al[1]);
+  __syncthreads();  // every warp is done reading a_s and ring
+}
+
+template <int BN, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+mrf_step_kernel(const Args a) {
+  extern __shared__ __align__(128) float smem[];
+  const int C = a.C;
+  const int k = a.k;
+  const int L = a.L;
+  const int kpad = (C + kKc - 1) / kKc * kKc;
+  const int S = kpad + 4;                 // 4 mod 32 words: no bank conflicts
+  const int reach = (k - 1) * a.d;
+  const int p2 = (k - 1) / 2;
+  const int rows_out = kBM - (k - 1);  // R
+  const int tile_rows = kBM + reach;
+  float* tile = smem;                  // act(x) rows, then h rows
+  float* ring = smem + round32(tile_rows * S);
+  const bool vec4 = a.vec4 != 0;
+
+  const int n = blockIdx.y;
+  const int tb = a.t_begin + blockIdx.x * rows_out;  // first output row
+  const int t0 = tb - p2 - p2 * a.d;                 // time of tile row 0
+  const float* xn = a.x + (size_t)n * L * C;
+  const float* mn = a.mask + (size_t)n * L;
+
+  stage<BN>(ring, a.w1, 0);
+
+  // the input rows, channels zero-padded to kpad: copied with cp.async
+  // (zeros outside the signal and the channels), then activated in place
+  const int kq = kpad / 4;
+  for (int i = threadIdx.x; i < tile_rows * kq; i += kThreads) {
+    const int r = i / kq;
+    const int c = (i % kq) * 4;
+    const int t = t0 + r;
+    float* dst = tile + r * S + c;
+    const float* src = xn + (size_t)t * C + c;
+    const bool in = t >= 0 && t < L;
+    if (vec4) {
+      copy16(dst, in && c < C ? src : xn, in && c < C);
+    } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xrow[i * kCiPad + c];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) b[j] = ws[c * kCo + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        copy4(dst + j, in && c + j < C ? src + j : xn, in && c + j < C);
       }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = tb + ty * 4 + i;
-    if (t >= t_begin + t_len) continue;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int co = co0 + tx + 16 * j;
-      if (co >= C) continue;
-      const size_t idx = ((size_t)n * L + t) * C + co;
-      float v = acc[i][j] + bias[co];
-      if (res != nullptr) v += res[idx];
-      if (acc_in != nullptr) v += acc_in[idx];
-      out[((size_t)n * out_len + (t - out_off)) * C + co] = v * scale;
-    }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  landed<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < tile_rows * kq; i += kThreads) {
+    const int r = i / kq;
+    const int t = t0 + r;
+    if (t < 0 || t >= L) continue;
+    float4* p = reinterpret_cast<float4*>(tile + r * S + (i % kq) * 4);
+    const float m = mn[t];
+    const float4 v = *p;
+    *p = make_float4(act(v.x, m), act(v.y, m), act(v.z, m), act(v.w, m));
   }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+
+  // conv1 over all kBM rows of h
+  conv_pass<BN>(acc, tile, S, a.w1, k, a.d, kpad, ring);
+  stage<BN>(ring, a.w2, 0);
+
+  // accumulator element j: row g (+8 for j % 4 >= 2) of this warp's 16 rows,
+  // column 8 * (j / 4) + 2 * t4 (+1 for odd j)
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+  const int row0 = (threadIdx.x >> 5) * 16 + g;
+
+  // h = act(conv1 + b1) over the input tile; zero outside [0, L) (conv2's
+  // SAME padding) and in the padded channels.  All loads first, then all
+  // stores, so that the loads are in flight together.
+  const int t_top = tb - p2 + row0;  // rows g and g + 8 of this warp
+  const bool in_top = t_top >= 0 && t_top < L;
+  const bool in_bot = t_top + 8 >= 0 && t_top + 8 < L;
+  const float m_top = in_top ? mn[t_top] : 0.f;
+  const float m_bot = in_bot ? mn[t_top + 8] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const int c = (j >> 2) * 8 + 2 * t4 + (j & 1);
+    const bool in = (j & 2) ? in_bot : in_top;
+    acc[j] = c < C && in ? act(acc[j] + a.b1[c], (j & 2) ? m_bot : m_top)
+                         : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const int r = row0 + ((j >> 1) & 1) * 8;
+    const int c = (j >> 2) * 8 + 2 * t4 + (j & 1);
+    if (c < kpad) tile[r * S + c] = acc[j];
+    acc[j] = 0.f;
+  }
+
+  // conv2 (all kBM rows; the rows past R are discarded)
+  conv_pass<BN>(acc, tile, S, a.w2, k, 1, kpad, ring);
+
+  // the residual, the bias and the block sum: all loads first, then all
+  // stores (acc_in may alias out, so a store would hold back later loads)
+  const int t_end = a.t_begin + a.t_len;
+  auto col = [&](int j) { return (j >> 2) * 8 + 2 * t4 + (j & 1); };
+  auto live = [&](int j) {
+    const int r = row0 + ((j >> 1) & 1) * 8;
+    return r < rows_out && tb + r < t_end && col(j) < C;
+  };
+  auto index = [&](int j) {  // of x[n, t, c]
+    const int t = tb + row0 + ((j >> 1) & 1) * 8;
+    return ((long long)n * L + t) * C + col(j);
+  };
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    if (!live(j)) continue;
+    const long long idx = index(j);
+    float v = a.x[idx] + (acc[j] + a.b2[col(j)]);
+    if (a.acc_in != nullptr) v += a.acc_in[idx];
+    acc[j] = v * a.scale;
+  }
+  // out[n, t - out_off, c] sits shift floats before x[n, t, c]
+  const long long shift = ((long long)n * (L - a.out_len) + a.out_off) * C;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    if (live(j)) a.out[index(j) - shift] = acc[j];
+  }
+}
+
+template <int BN, int MIN_BLOCKS>
+int launch(const Args& a, int nb, cudaStream_t stream) {
+  const int kpad = (a.C + kKc - 1) / kKc * kKc;
+  const size_t bytes = (size_t)(round32((kBM + (a.k - 1) * a.d) * (kpad + 4)) +
+                                ring_floats(BN)) * 4;
+  const size_t most = (size_t)(round32((kBM + kMaxReach) * (BN + 4)) +
+                               ring_floats(BN)) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      mrf_step_kernel<BN, MIN_BLOCKS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (e != cudaSuccess) return (int)e;
+  const int rows_out = kBM - (a.k - 1);
+  const dim3 grid((a.t_len + rows_out - 1) / rows_out, nb);
+  mrf_step_kernel<BN, MIN_BLOCKS><<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, res, acc_in [nb, L, C]; mask [nb, L]; w [k, C, C] (tap, in, out);
-// bias [C]; out [nb, out_len, C].  res and acc_in may be null; acc_in may
-// alias out when out_len == L and out_off == 0.
-// Returns cudaGetLastError() after the launch.
-extern "C" int ss_mrf_conv(const float* x, const float* mask, const float* w,
-                           const float* bias, const float* res,
+// One dilation step (see the header).  x, acc_in [nb, L, C]; mask [nb, L];
+// w1, w2 laid out by the wrapper for tile width bn = 32, 64 or 128, the
+// least that holds C (see stage()); b1, b2 [C]; out [nb, out_len, C].
+// acc_in may be null and may alias out; out must not alias x.  Returns a
+// CUDA error code (0 after a launch that was accepted).
+extern "C" int ss_mrf_step(const float* x, const float* mask, const float* w1,
+                           const float* b1, const float* w2, const float* b2,
                            const float* acc_in, float* out, int nb, int L,
-                           int C, int k, int d, int t_begin, int t_len,
-                           int out_len, int out_off, float scale,
+                           int C, int bn, int k, int d, int t_begin,
+                           int t_len, int out_len, int out_off, float scale,
                            void* stream) {
-  if (C <= 0 || (k - 1) * d > kMaxReach || t_len <= 0 || nb <= 0) {
+  const int tile_n = C <= 32 ? 32 : C <= 64 ? 64 : 128;
+  if (C <= 0 || C > kMaxC || bn != tile_n || k < 1 || d < 1 ||
+      (k - 1) * d > kMaxReach || ((uintptr_t)w1 | (uintptr_t)w2) % 16 ||
+      nb <= 0 || t_len <= 0 || t_begin < 0 || t_begin + t_len > L ||
+      t_begin - out_off < 0 || t_begin + t_len - out_off > out_len) {
     return (int)cudaErrorInvalidValue;
   }
-  const int cpt = (C % 64 == 0) ? 4 : (C % 32 == 0) ? 2 : 1;
-  const int co_tile = 16 * cpt;
-  const dim3 grid((t_len + kRows - 1) / kRows, (C + co_tile - 1) / co_tile,
-                  nb);
+  const Args a{x, mask, w1, b1, w2, b2, acc_in, out,
+               L, C, k, d, t_begin, t_len, out_len, out_off, scale,
+               (C % 4 == 0 && (uintptr_t)x % 16 == 0) ? 1 : 0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (cpt == 4) {
-    mrf_conv_kernel<4><<<grid, kThreads, 0, s>>>(
-        x, mask, w, bias, res, acc_in, out, L, C, k, d, t_begin, t_len,
-        out_len, out_off, scale);
-  } else if (cpt == 2) {
-    mrf_conv_kernel<2><<<grid, kThreads, 0, s>>>(
-        x, mask, w, bias, res, acc_in, out, L, C, k, d, t_begin, t_len,
-        out_len, out_off, scale);
-  } else {
-    mrf_conv_kernel<1><<<grid, kThreads, 0, s>>>(
-        x, mask, w, bias, res, acc_in, out, L, C, k, d, t_begin, t_len,
-        out_len, out_off, scale);
-  }
-  return (int)cudaGetLastError();
+  if (bn == 32) return launch<32, 2>(a, nb, s);
+  if (bn == 64) return launch<64, 2>(a, nb, s);
+  return launch<128, 1>(a, nb, s);
 }

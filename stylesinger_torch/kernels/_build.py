@@ -24,6 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+PTXAS_VERBOSE = ["-Xptxas", "-v"]  # registers, shared memory, spills
 
 
 class _Library:
@@ -32,6 +33,7 @@ class _Library:
     def __init__(self) -> None:
         self.lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None  # None: loaded, not built
+        self.ptxas_log = ""  # what ``-Xptxas -v`` printed for each kernel
 
 
 _LIBRARY = _Library()
@@ -67,17 +69,20 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: List[List[str]]) -> None:
+def _run_all(cmds: List[List[str]]) -> str:
+    """Runs the commands in parallel; returns their joined output."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    failures = []
+    failures, outputs = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outputs.append(out)
         if proc.returncode != 0:
             failures.append(f"$ {' '.join(cmd)}\n{out}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return "".join(outputs)
 
 
 def build() -> Path:
@@ -91,8 +96,9 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources()]
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(sources(), objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", str(src),
+                         "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
         tmp = BUILD_DIR / f"lib_{tag}.so"
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
                    str(tmp)]])
@@ -101,6 +107,7 @@ def build() -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     _LIBRARY.build_seconds = time.perf_counter() - t0
+    _LIBRARY.ptxas_log = log
     return target
 
 
@@ -119,13 +126,25 @@ def build_seconds() -> Optional[float]:
     return _LIBRARY.build_seconds
 
 
+def ptxas_report() -> List[str]:
+    """One line per compiled kernel from the last build in this process:
+    its name, registers, shared memory and spill bytes (empty: none ran)."""
+    lines, name = [], None
+    for raw in _LIBRARY.ptxas_log.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and ("spill" in line or "Used" in line):
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ss_mel_spectrogram.argtypes = [p, i, p, p, p, i, i, i, i, f, p]
+    lib.ss_mel_spectrogram.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
     lib.ss_mel_spectrogram.restype = i
-    lib.ss_mrf_conv.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                i, i, f, p]
-    lib.ss_mrf_conv.restype = i
+    lib.ss_mrf_step.argtypes = [p] * 8 + [i] * 10 + [f, p]
+    lib.ss_mrf_step.restype = i
 
 
 def check(status: int, name: str) -> None:

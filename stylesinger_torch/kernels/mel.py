@@ -2,10 +2,11 @@
 
 Counterpart of ``stylesinger_tpu/ops/mel_pallas.py::mel_spectrogram``:
 zero-center-padded frames x periodic Hann window -> real DFT -> magnitude
--> mel projection -> log10(max(., eps)).  The DFT runs in f64 in both the
-kernel and the twin: an f32 direct DFT leaves about 1e-6 of rounding noise
-in every bin, which log10 near its 1e-6 floor turns into errors of several
-1e-2 on the nearly empty bins of a clean voice.  On a CUDA tensor
+-> mel projection -> log10(max(., eps)).  The transform runs in f64 in both
+the kernel (an FFT, two real frames per complex transform) and the twin (a
+direct DFT): an f32 direct DFT leaves about 1e-6 of rounding noise in every
+bin, which log10 near its 1e-6 floor turns into errors of several 1e-2 on
+the nearly empty bins of a clean voice.  On a CUDA tensor
 :func:`mel_spectrogram` launches the kernel; on a CPU tensor it runs
 :func:`mel_spectrogram_plain`, the same arithmetic in plain PyTorch, which
 is also the golden the kernel is held against on the card.
@@ -25,7 +26,7 @@ from stylesinger_torch.dsp.mel import (
 from stylesinger_torch.kernels._build import LaunchCounter, check, library
 
 counter = LaunchCounter()
-MAX_N_FFT = 1024  # the kernel's twiddle tables hold <= 1024 entries
+MAX_N_FFT = 1024  # the kernel's FFT buffers hold <= 1024 points
 
 
 @functools.lru_cache(maxsize=8)
@@ -49,6 +50,20 @@ def _constants(sample_rate: int, n_fft: int, win_length: int, n_mels: int,
             torch.as_tensor(np.sin(ang), device=device),
             torch.as_tensor(np.ascontiguousarray(mel_t, np.float32),
                             device=device))
+
+
+@functools.lru_cache(maxsize=8)
+def _bands(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
+           fmax: float, device: torch.device) -> torch.Tensor:
+    """[n_mels, 2] int32: the bins [first, last + 1) where each mel filter
+    is nonzero (the kernel sums only those; the others add exact zeros)."""
+    mel_t = mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax).T
+    bands = np.zeros((n_mels, 2), np.int32)
+    for m in range(n_mels):
+        nz = np.flatnonzero(mel_t[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1] + 1
+    return torch.as_tensor(bands, device=device)
 
 
 def mel_spectrogram_plain(wav: torch.Tensor, window: torch.Tensor,
@@ -85,15 +100,18 @@ def mel_spectrogram(wav: torch.Tensor, *, sample_rate: int = 48000,
                          f"got {wav.dtype} {tuple(wav.shape)}")
     if not wav.is_contiguous():
         raise ValueError("mel_spectrogram: wav must be contiguous")
-    if n_fft > MAX_N_FFT:
-        raise ValueError(f"mel_spectrogram: n_fft {n_fft} > {MAX_N_FFT}")
+    if n_fft > MAX_N_FFT or n_fft < 2 or n_fft & (n_fft - 1):
+        raise ValueError(f"mel_spectrogram: n_fft {n_fft} is not a power "
+                         f"of two in [2, {MAX_N_FFT}]")
     window, _, _, mel_t = consts
+    bands = _bands(sample_rate, n_fft, n_mels, float(fmin), float(fmax),
+                   wav.device)
     n_frames = 1 + wav.shape[0] // hop_size
     out = torch.empty((n_frames, n_mels), dtype=torch.float32,
                       device=wav.device)
     status = library().ss_mel_spectrogram(
         wav.data_ptr(), wav.shape[0], window.data_ptr(), mel_t.data_ptr(),
-        out.data_ptr(), n_frames, n_fft, hop_size, n_mels, eps,
+        bands.data_ptr(), out.data_ptr(), n_frames, n_fft, hop_size, n_mels, eps,
         torch.cuda.current_stream(wav.device).cuda_stream)
     check(status, "mel_spectrogram")
     counter.count += 1

@@ -6,11 +6,14 @@ Pallas kernel (interpret mode) and its XLA twin with the tolerances of
 kernel against its twin on the card.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stylesinger_tpu.dsp.mel import wav2mel as jax_wav2mel
 from stylesinger_tpu.models.hifigan import ResBlock1 as JaxResBlock1
@@ -20,7 +23,7 @@ from stylesinger_tpu.ops.mrf_pallas import fused_mrf_blocks as pallas_mrf
 
 from stylesinger_torch.kernels import mel as melk
 from stylesinger_torch.kernels import mrf as mrfk
-from stylesinger_torch.models.hifigan import _blockify, _unblockify
+from stylesinger_torch.models.hifigan import ResBlock1, _blockify, _unblockify
 
 MEL_CASES = {
     "48k": (48000, 0.3, dict()),
@@ -92,6 +95,104 @@ def test_mrf_twin_matches_pallas_and_blocked_resblocks(case):
     assert ours.shape == flax_ref.shape == pallas.shape
     np.testing.assert_allclose(ours, flax_ref, atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(ours, pallas, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(MRF_CASES))
+def test_mrf_schedule_of_plain_steps_matches_twin_and_pallas(case):
+    """The launch schedule of the CUDA path (which step reads which buffer,
+    residual, block sum, crop, scale), driven with a plain step that
+    computes what one launch computes."""
+    s = _mrf_setup(case)
+    kw = dict(kernels=s["rk"], dilations=s["rd"], block=s["block"],
+              halo=s["halo"])
+    xb = torch.tensor(np.asarray(s["xb"]))
+    mask = torch.tensor(np.asarray(s["mask"]))
+    weights = _torch_weights(s["weights"])
+    steps = []
+
+    def step(*args, **step_kw):
+        steps.append(step_kw["k"])
+        mrfk.mrf_step_plain(*args, **step_kw)
+
+    ours = mrfk.mrf_schedule(xb, mask, weights, step=step, **kw).numpy()
+    assert len(steps) == sum(len(d) for d in s["rd"])
+    twin = mrfk.mrf_blocks_plain(xb, mask, weights, **kw).numpy()
+    pallas = np.asarray(pallas_mrf(s["xb"], s["mask"], s["weights"],
+                                   interpret=True, **kw))
+    np.testing.assert_allclose(ours, twin, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(ours, pallas, atol=2e-5, rtol=1e-4)
+
+
+def _tf32(a):
+    """Round to TF32 by clearing the low 13 of f32's 23 mantissa bits."""
+    return (a.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _conv_tf32(a, w, **kw):
+    return F.conv1d(_tf32(a), _tf32(w), **kw)
+
+
+def _conv_3xtf32(a, w, **kw):
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
+    return (F.conv1d(a_lo, w_hi, **kw) + F.conv1d(a_hi, w_lo, **kw)
+            + F.conv1d(a_hi, w_hi, **kw))
+
+
+def test_mrf_3xtf32_split_meets_the_tolerance_one_tf32_term_does_not(
+        record_property):
+    """Why the kernel splits each operand into two TF32 halves: with the
+    products rounded as the tensor cores round them, three terms
+    (lo*hi + hi*lo + hi*hi) reproduce the f32 twin within the card check's
+    1e-4 * max|y|; one TF32 product does not.  At the card test's C128
+    case (flagship group)."""
+    c, block, t = 128, 256, 700
+    rk, rd = (3, 7, 11), ((1, 3, 5),) * 3
+    halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    rng = np.random.default_rng(c)
+    xb, mask, _ = _blockify(torch.as_tensor(
+        rng.standard_normal((1, t, c)).astype(np.float32)), block, halo)
+    weights = [[tuple((torch.as_tensor(rng.standard_normal((k, c, c))
+                                       .astype(np.float32) / math.sqrt(k * c)),
+                       torch.as_tensor(0.1 * rng.standard_normal(c)
+                                       .astype(np.float32)))
+                      for _ in range(2)) for _ in ds]
+               for k, ds in zip(rk, rd)]
+    kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
+    twin = mrfk.mrf_blocks_plain(xb, mask, weights, **kw)
+    scale = float(twin.abs().max())
+    errs = {}
+    for name, conv in (("3xtf32", _conv_3xtf32), ("tf32", _conv_tf32)):
+        def step(*args, _conv=conv, **step_kw):
+            mrfk.mrf_step_plain(*args, conv=_conv, **step_kw)
+        y = mrfk.mrf_schedule(xb, mask, weights, step=step, **kw)
+        errs[name] = float((y - twin).abs().max()) / scale
+        record_property(f"rel_err_{name}", errs[name])
+    assert errs["3xtf32"] <= 1e-4, errs
+    assert errs["tf32"] > 1e-4, errs
+
+
+@pytest.mark.parametrize("c", [24, 128])
+def test_mrf_kernel_layout_is_the_split_weight_in_core_matrix_order(c):
+    """The image the CUDA kernel copies into shared memory: per tap and 32
+    input channels, the TF32 halves of W, zero-padded to the tile, with
+    (co, ci) at ((co // 8) * 8 + ci // 4) * 32 + (co % 8) * 4 + ci % 4."""
+    k, bn, kpad = 3, mrfk.tile_n(c), -(-c // 32) * 32
+    rng = np.random.default_rng(c)
+    w = torch.as_tensor(rng.standard_normal((k, c, c)).astype(np.float32))
+    b = torch.zeros(c)
+    [[((laid, _), _)]] = mrfk._kernel_layout([[((w, b), (w, b))]], c)
+    assert laid.shape == (k, kpad // 32, 2, 32 * bn) and laid.is_contiguous()
+    bits = laid.view(torch.int32) & 0x1FFF
+    assert int(bits.abs().max()) == 0  # both halves are TF32 values
+    tap, ci, co = np.meshgrid(np.arange(k), np.arange(kpad), np.arange(bn),
+                              indexing="ij")
+    cc = ci % 32
+    pos = ((co // 8) * 8 + cc // 4) * 32 + (co % 8) * 4 + cc % 4
+    image = (laid[:, :, 0] + laid[:, :, 1]).numpy()[tap, ci // 32, pos]
+    ref = np.zeros((k, kpad, bn), np.float32)
+    ref[:, :c, :c] = w.numpy()
+    np.testing.assert_allclose(image, ref, rtol=2 ** -20, atol=0)
 
 
 @pytest.mark.parametrize("case", sorted(MRF_CASES))
