@@ -15,22 +15,36 @@ Phases, each printed on its own line with its elapsed seconds:
    shapes of the flagship main path, with its error, tolerance, launches
    per call, time per call (``ms``: CUDA events around one call, median),
    the twin's time, and the least time the card could take (``bound_ms``,
-   with the peak it is taken against);
-2. three zero-shot requests through ``StyleSingerInfer.infer_once`` on a
-   flagship-width model with seeded random weights;
-   the launch counts of both kernels are reset before and read after: each
-   request must launch the mel kernel once and the MRF kernel once per
-   dilation step of each kernel stage (27 for the flagship); then request 0
-   again, timed stage by stage (reference front-end, acoustic model,
-   vocoder);
-3. agreement on a small input: the same tiny model, weights and noise on
-   the card (kernels) and on the CPU (plain twins);
+   with the peak it is taken against): the mel kernel, the MRF kernel's
+   f32 mode and its bf16 mode (with the blocks that fit on an SM);
+2. zero-shot requests through ``StyleSingerInfer.infer_once`` on
+   flagship-width models with seeded random weights, path by path, each
+   with every launch count and the denoiser-call counts set to 0 just
+   before it and read just after:
+   - ``defaults`` (``load_config()``, f32 vocoder): one request, which must
+     launch the mel kernel once and the f32 MRF mode 27 times;
+   - ``recipe`` (``load_config(recipe="stylesinger")``, the repo's recipe:
+     bf16 vocoder, 100-step samplers): three requests, each 1 mel and 27
+     bf16-mode MRF launches and 2 x 100 + 100 denoiser calls;
+   - ``fast dpm10_f0fast5`` (the recipe with ``f0_speedup=5,
+     dpm_steps=10``) and ``fast fast_both`` (``f0_speedup=5,
+     pndm_speedup=5``): three requests each, with 2 x 20 + 10 and
+     2 x 20 + 21 denoiser calls;
+   each request prints its latency and real-time factor, and each path
+   ends with request 0 timed stage by stage (reference front-end, acoustic
+   model, vocoder); then ``HifiGAN_NSF.spec2wav_streaming`` once on the
+   recipe's request 0;
+3. agreement on small inputs, the card (kernels) against the CPU (plain
+   twins): the tiny model; the tiny ProDiff / FFT-denoiser / conv-pitch
+   model with a ``ResBlock2`` vocoder; a generator whose MRF reach is past
+   the kernel's 64 rows; the mel kernel at n_fft 2048 and 1000; with the
+   mel launches and the MRF stage routes printed;
 4. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
-   so that no profiler session comes before the timed requests; request
-   0's stage timing is then repeated, to show whether profiling slowed the
-   process.
+   so that no profiler session comes before the timed requests; the
+   recipe's request 0 stage timing is then repeated, to show whether
+   profiling slowed the process.
 
 It prints a JSON line with one entry per kernel, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -52,10 +66,13 @@ REPO = Path(__file__).resolve().parent
 SEED = 1234
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 BUILD_LIMIT_S = 60.0
 MEL_TOL = dict(atol=3e-3, rtol=2e-3)
 MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
+MRF_BF16_ULPS = 2        # bf16 ulps of max|y|: an f32 sum in another order
+                         # can land across a bf16 rounding
 
 # the phrase and notes of the JAX package's example_run
 EXAMPLE = dict(
@@ -228,24 +245,42 @@ def phase_mel(t0, torch, np, wav_np):
 
 
 def mrf_stages(cfg, np):
-    """(C, T) of the vocoder stages that run the MRF kernel: C <= 128 and
-    at least two blocks (models/hifigan.py); the vocoder runs at
-    ``max_frames``."""
+    """(C, T) of the vocoder stages that run the MRF kernel (the
+    generator's routing rule, models/hifigan.py::HifiGanGenerator.mrf_route:
+    ResBlock1, C <= 128, reach <= 64, at least two blocks); the vocoder
+    runs at ``max_frames``."""
+    from stylesinger_torch.kernels.mrf import takes_stage
+
     rates = cfg["upsample_rates"]
+    rk = tuple(cfg["resblock_kernel_sizes"])
+    rd = tuple(tuple(d) for d in cfg["resblock_dilation_sizes"])
     stages = []
     for i in range(len(rates)):
         c = cfg["upsample_initial_channel"] // 2 ** (i + 1)
         t = cfg["max_frames"] * int(np.prod(rates[: i + 1]))
-        if c <= 128 and t >= 2 * cfg["mrf_block"]:
+        if (str(cfg["resblock"]) == "1" and takes_stage(c, rk, rd)
+                and t >= 2 * cfg["mrf_block"]):
             stages.append((c, t))
     return stages
 
 
-def phase_mrf(t0, torch, np, cfg):
+def ulp_bf16(v: float) -> float:
+    """The spacing of bf16 values at v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def phase_mrf(t0, torch, np, cfg, bf16=False):
+    """The MRF kernel at the flagship's kernel stages, in its f32 mode
+    (against the f32 twin, 1e-4 of max|y|) or its bf16 mode (bf16 inputs
+    and output, against the bf16 twin, 2 bf16 ulps of max|y|)."""
     from stylesinger_torch.kernels import mrf as mrfk
     from stylesinger_torch.models.hifigan import ResBlock1, _blockify
 
     dev = torch.device("cuda")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    counter = mrfk.counter_bf16 if bf16 else mrfk.counter
+    plain_fn = mrfk.mrf_blocks_plain_bf16 if bf16 else mrfk.mrf_blocks_plain
+    tag = "mrf_bf16" if bf16 else "mrf"
     rk = tuple(cfg["resblock_kernel_sizes"])
     rd = tuple(tuple(d) for d in cfg["resblock_dilation_sizes"])
     block = cfg["mrf_block"]
@@ -254,8 +289,11 @@ def phase_mrf(t0, torch, np, cfg):
     worst = 0.0
     timed = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0)
+    peak, peak_name = ((PEAK_BF16_FLOPS, "bf16 989e12") if bf16
+                       else (PEAK_TF32_FLOPS, "tf32 495e12"))
+    elem = 2 if bf16 else 4
     for c, t in mrf_stages(cfg, np):
-        x = torch.randn((1, t, c), generator=gen, device=dev)
+        x = torch.randn((1, t, c), generator=gen, device=dev).to(dtype)
         xb, mask, _ = _blockify(x, block, halo)
         weights = [[tuple((torch.randn((k, c, c), generator=gen, device=dev)
                            / math.sqrt(k * c),
@@ -264,51 +302,64 @@ def phase_mrf(t0, torch, np, cfg):
                           for _ in range(2)) for _ in ds]
                    for k, ds in zip(rk, rd)]
         kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
-        before = mrfk.counter.count
-        out = mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
-        per_call = mrfk.counter.count - before
-        ref = mrfk.mrf_blocks_plain(xb, mask, weights, **kw)
+        before = counter.count
+        out = mrfk.fused_mrf_blocks(xb, mask, weights, compute_dtype=dtype,
+                                    **kw)
+        per_call = counter.count - before
+        ref = plain_fn(xb, mask, weights, **kw)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        rel = err / scale
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if bf16:
+            tol = MRF_BF16_ULPS * ulp_bf16(scale)
+            tol_text = f"{MRF_BF16_ULPS}ulp(max|y|)={tol:.3e}"
+        else:
+            tol = MRF_REL_TOL * scale
+            tol_text = f"{MRF_REL_TOL:g}*max|y|"
         call = functools.partial(mrfk.fused_mrf_blocks, xb, mask, weights,
-                                 **kw)
-        plain = functools.partial(mrfk.mrf_blocks_plain, xb, mask, weights,
-                                  **kw)
+                                 compute_dtype=dtype, **kw)
+        plain = functools.partial(plain_fn, xb, mask, weights, **kw)
         ms, plain_ms = time_ms(torch, call, 10), time_ms(torch, plain, 10)
-        timed.append((f"mrf C={c}", call, plain))
+        timed.append((f"{tag} C={c}", call, plain))
         # the group's own work on the true T rows (no halo or padding
         # rows): 2 convs per dilation, each 2*T*C*C*k FLOP; x read and y
-        # written once, and the weights
+        # written once, and the weights (f32 biases)
         sum_k = sum(2 * k * len(ds) for k, ds in zip(rk, rd))
         flops = 2.0 * t * c * c * sum_k
-        nbytes = 4.0 * (2 * t * c + sum(2 * (k * c * c + c) * len(ds)
-                                        for k, ds in zip(rk, rd)))
-        # the kernel runs on the TF32 tensor cores: its bound is their peak
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_TF32_FLOPS)
-        f32_ms, _ = bound_ms(flops, nbytes)
-        say(f"kernel mrf C={c}", t0, xb=tuple(xb.shape),
-            max_abs_err=f"{err:.3e}", max_abs_y=f"{scale:.3e}",
-            rel_err=f"{rel:.3e}", tol=f"{MRF_REL_TOL:g}*max|y|",
-            ok=rel <= MRF_REL_TOL, launches_per_call=per_call,
+        nbytes = (elem * 2.0 * t * c +
+                  sum((elem * 2 * k * c * c + 4 * 2 * c) * len(ds)
+                      for k, ds in zip(rk, rd)))
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        # the step of widest reach: its tile has the most rows
+        k_w, d_w = max(((k, d) for k, ds in zip(rk, rd) for d in ds),
+                       key=lambda kd: (kd[0] - 1) * kd[1])
+        fits, smem = mrfk.occupancy(c, k_w, d_w, dtype)
+        say(f"kernel {tag} C={c}", t0, xb=tuple(xb.shape),
+            dtype=str(dtype).split(".")[-1], max_abs_err=f"{err:.3e}",
+            max_abs_y=f"{scale:.3e}", rel_err=f"{err / scale:.3e}",
+            tol=tol_text, ok=err <= tol, launches_per_call=per_call,
+            widest_step_smem_bytes=smem, blocks_per_sm=fits,
             ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{b_ms:.3f}", bound_by=b_by, peak="tf32 495e12",
-            f32_fma_bound_ms=f"{f32_ms:.3f}", flop=f"{flops:.3e}",
-            tflops=f"{flops / ms / 1e9:.2f}", library_ms="none")
-        require(out.shape == ref.shape and rel <= MRF_REL_TOL,
-                f"MRF kernel disagrees at C={c}: {rel}")
+            bound_ms=f"{b_ms:.3f}", bound_by=b_by, peak=peak_name,
+            flop=f"{flops:.3e}", tflops=f"{flops / ms / 1e9:.2f}",
+            library_ms="none")
+        require(out.shape == ref.shape and out.dtype == dtype and err <= tol,
+                f"MRF kernel ({tag}) disagrees at C={c}: {err} > {tol}")
         steps = sum(len(ds) for ds in rd)
         require(per_call == steps,
-                f"MRF C={c}: {per_call} launches per call, not {steps}")
+                f"{tag} C={c}: {per_call} launches per call, not {steps}")
         worst = max(worst, err)
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += b_ms
         tot["flops"] += flops
         tot["bytes"] += nbytes
-    _, by = bound_ms(tot["flops"], tot["bytes"], PEAK_TF32_FLOPS)
-    entry = dict(name="fused_mrf_blocks", route="cuda",
+    _, by = bound_ms(tot["flops"], tot["bytes"], peak)
+    say(f"kernel {tag} total", t0, flop=f"{tot['flops']:.4e}",
+        ms=f"{tot['ms']:.3f}", bound_ms=f"{tot['bound_ms']:.3f}",
+        share_of_bound=f"{tot['bound_ms'] / tot['ms']:.3f}")
+    entry = dict(name="fused_mrf_blocks_bf16" if bf16 else
+                 "fused_mrf_blocks", route="cuda",
                  source="stylesinger_torch/csrc/mrf.cu",
                  replaces="stylesinger_tpu/ops/mrf_pallas.py:141",
                  max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -337,11 +388,115 @@ def make_infer(cfg, phones, device, seed, frames=None):
     return infer
 
 
-def phase_requests(t0, torch, np, cfg, wav_np):
+def expected_calls(cfg):
+    """Denoiser calls per request: (F0 chains, mel sampler)."""
+    from stylesinger_torch.models import diffusion as diff
+
+    f0 = 2 * len(range(cfg["f0_timesteps"] - 1, -1,
+                       -int(cfg.get("f0_speedup", 1))))
+    k = cfg["K_step"]
+    if int(cfg.get("dpm_steps", 0) or 0) > 0:
+        mel = len(diff.dpmpp_grid(diff.make_schedule(cfg["timesteps"],
+                                                     cfg["max_beta"]),
+                                  k, cfg["dpm_steps"])[0])
+    elif int(cfg.get("pndm_speedup", 1) or 1) > 1:
+        # steps t = K - s, K - 2s, .., 0; the first calls the denoiser twice
+        steps = len(range(k - cfg["pndm_speedup"], -1, -cfg["pndm_speedup"]))
+        mel = steps + 1 if steps else 0
+    else:
+        mel = k
+    return f0, mel
+
+
+def count_denoiser_calls(model) -> dict:
+    """Counts the calls of the F0 and mel denoisers (forward hooks)."""
+    calls = {"f0": 0, "mel": 0}
+
+    def hook(key):
+        def tick(*_):
+            calls[key] += 1
+        return tick
+
+    for name in ("gm_diffnet", "gm_diffnet_inpainte"):
+        getattr(model, name).register_forward_hook(hook("f0"))
+    model.postdiff.register_forward_hook(hook("mel"))
+    return calls
+
+
+def counters():
     from stylesinger_torch.kernels import mel as melk
     from stylesinger_torch.kernels import mrf as mrfk
 
+    return {"mel_spectrogram": melk.counter,
+            "fused_mrf_blocks": mrfk.counter,
+            "fused_mrf_blocks_bf16": mrfk.counter_bf16}
+
+
+def run_path(t0, torch, np, infer, calls, label, requests, wav_np,
+             expect):
+    """Drives ``infer_once`` over ``requests``, with every launch count and
+    the denoiser-call counts set to 0 just before and read just after.
+    ``expect``: launches per request of each kernel.  Returns the path's
+    launches."""
+    cfg = infer.cfg
+    want_calls = expected_calls(cfg)
+    for ctr in counters().values():
+        ctr.reset()
+    calls.update(f0=0, mel=0)
+    lat_total = audio_total = 0.0
+    for n, req in enumerate(requests):
+        req = dict(req, ref_audio=wav_np)
+        before = {k: c.count for k, c in counters().items()}
+        calls_before = dict(calls)
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        wav = infer.infer_once(req)
+        torch.cuda.synchronize()
+        lat = time.perf_counter() - tr
+        launches = {k: c.count - before[k] for k, c in counters().items()}
+        n_calls = (calls["f0"] - calls_before["f0"],
+                   calls["mel"] - calls_before["mel"])
+        audio_s = wav.shape[0] / cfg["audio_sample_rate"]
+        finite = bool(np.isfinite(wav).all())
+        say(f"request {label} {n}", t0, phones=len(req["ph"].split()),
+            note_s=f"{sum(req['notes_duration']):.2f}",
+            latency_s=f"{lat:.3f}", samples=wav.shape[0],
+            audio_s=f"{audio_s:.2f}",
+            rtf=f"{lat / audio_s:.4f}" if audio_s > 0 else "inf",
+            finite=finite, mel_launches=launches["mel_spectrogram"],
+            mrf_launches=launches["fused_mrf_blocks"],
+            mrf_bf16_launches=launches["fused_mrf_blocks_bf16"],
+            denoiser_calls_f0=n_calls[0], denoiser_calls_mel=n_calls[1])
+        require(finite and wav.ndim == 1 and wav.shape[0] > 0,
+                f"request {label} {n}: bad output {wav.shape}")
+        require(launches == expect,
+                f"request {label} {n}: launches {launches}, expected "
+                f"{expect}")
+        require(n_calls == want_calls,
+                f"request {label} {n}: denoiser calls {n_calls}, expected "
+                f"{want_calls}")
+        lat_total += lat
+        audio_total += audio_s
+    say(f"path {label}", t0, requests=len(requests),
+        latency_s=f"{lat_total:.3f}", audio_s=f"{audio_total:.2f}",
+        rtf=f"{lat_total / audio_total:.4f}",
+        denoiser_calls_per_request=sum(want_calls))
+    launches = {k: c.count for k, c in counters().items()}
+    breakdown(t0, torch, infer, dict(requests[0], ref_audio=wav_np),
+              label=f"breakdown {label} request 0")
+    return launches
+
+
+def phase_requests(t0, torch, np, cfg, recipe, wav_np):
+    """The defaults path, the recipe path and the two fast-sampler paths.
+    Returns the launches of each kernel on its path, the recipe's model
+    and a callable that repeats the recipe's stage timing."""
     phones = sorted(set(EXAMPLE["ph"].split()))
+    requests = [cut(EXAMPLE, 27), cut(EXAMPLE, 12), cut(EXAMPLE, 6)]
+    stages = len(mrf_stages(cfg, np)) * sum(
+        len(d) for d in cfg["resblock_dilation_sizes"])
+    none = {k: 0 for k in counters()}
+
     infer = make_infer(cfg, phones, "cuda", SEED)
     n_params = sum(p.numel() for m in infer.modules()
                    for p in m.parameters())
@@ -350,40 +505,62 @@ def phase_requests(t0, torch, np, cfg, wav_np):
         f"{cfg['f0_residual_channels']}", mel_net=f"{cfg['residual_layers']}"
         f"x{cfg['residual_channels']}", steps=cfg["timesteps"],
         max_frames=cfg["max_frames"],
-        params=n_params, dur_head="bias=log1p(mean note frames),w*0.1")
-    requests = [cut(EXAMPLE, 27), cut(EXAMPLE, 12), cut(EXAMPLE, 6)]
-    # one MRF launch per dilation step of each kernel stage
-    mrf_expected = len(mrf_stages(cfg, np)) * sum(
-        len(d) for d in cfg["resblock_dilation_sizes"])
-    melk.counter.reset()
-    mrfk.counter.reset()
-    for n, req in enumerate(requests):
-        req = dict(req, ref_audio=wav_np)
-        before = (melk.counter.count, mrfk.counter.count)
-        torch.cuda.synchronize()
-        tr = time.perf_counter()
-        wav = infer.infer_once(req)
-        torch.cuda.synchronize()
-        lat = time.perf_counter() - tr
-        launches = (melk.counter.count - before[0],
-                    mrfk.counter.count - before[1])
-        finite = bool(np.isfinite(wav).all())
-        say(f"request {n}", t0, phones=len(req["ph"].split()),
-            note_s=f"{sum(req['notes_duration']):.2f}",
-            latency_s=f"{lat:.3f}", samples=wav.shape[0],
-            audio_s=f"{wav.shape[0] / cfg['audio_sample_rate']:.2f}",
-            finite=finite, mel_launches=launches[0],
-            mrf_launches=launches[1])
-        require(finite and wav.ndim == 1 and wav.shape[0] > 0,
-                f"request {n}: bad output {wav.shape}")
-        require(launches == (1, mrf_expected),
-                f"request {n}: launches (mel, MRF) {launches}, expected "
-                f"(1, {mrf_expected})")
-    launches = {"mel_spectrogram": melk.counter.count,
-                "fused_mrf_blocks": mrfk.counter.count}
+        params=n_params, dur_head="bias=log1p(mean note frames),w*0.1",
+        mrf_routes=infer.vocoder.mrf_routes(cfg["max_frames"]))
+    calls = count_denoiser_calls(infer.model)
+    defaults = run_path(t0, torch, np, infer, calls, "defaults",
+                        requests[:1], wav_np,
+                        dict(none, mel_spectrogram=1,
+                             fused_mrf_blocks=stages))
+    del infer
+
+    infer = make_infer(recipe, phones, "cuda", SEED)
+    say("model recipe", t0, vocoder_compute_dtype=recipe[
+        "vocoder_compute_dtype"], mrf_routes=infer.vocoder.mrf_routes(
+            recipe["max_frames"]))
+    calls = count_denoiser_calls(infer.model)
+    expect = dict(none, mel_spectrogram=1, fused_mrf_blocks_bf16=stages)
+    launches = run_path(t0, torch, np, infer, calls, "recipe", requests,
+                        wav_np, expect)
+    for label, fast in (("fast dpm10_f0fast5", dict(f0_speedup=5,
+                                                    dpm_steps=10)),
+                        ("fast fast_both", dict(f0_speedup=5,
+                                                pndm_speedup=5))):
+        saved = {k: infer.cfg[k] for k in fast}
+        infer.cfg.update(fast)
+        run_path(t0, torch, np, infer, calls, label, requests, wav_np,
+                 expect)
+        infer.cfg.update(saved)
+    launches["fused_mrf_blocks"] = defaults["fused_mrf_blocks"]
     req0 = dict(requests[0], ref_audio=wav_np)
-    breakdown(t0, torch, infer, req0)
-    return launches, functools.partial(breakdown, t0, torch, infer, req0)
+    return launches, infer, functools.partial(
+        breakdown, t0, torch, infer, req0)
+
+
+def phase_streaming(t0, torch, np, infer, wav_np):
+    """``HifiGAN_NSF.spec2wav_streaming`` on the recipe's request 0 mel."""
+    from stylesinger_torch.kernels import mrf as mrfk
+    from stylesinger_torch.vocoder_infer import HifiGAN_NSF
+
+    out = infer.forward_model(infer.preprocess_input(
+        dict(cut(EXAMPLE, 27), ref_audio=wav_np)))
+    voc = HifiGAN_NSF(infer.cfg, model=infer.vocoder, device="cuda",
+                      seed=SEED)
+    mrfk.counter_bf16.reset()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    wav = voc.spec2wav_streaming(out["mel"], out["f0"])
+    torch.cuda.synchronize()
+    lat = time.perf_counter() - ts
+    frames, hop = out["mel"].shape[0], infer.cfg["hop_size"]
+    say("spec2wav_streaming", t0, frames=frames, chunk_frames=256,
+        overlap_frames=16, latency_s=f"{lat:.3f}", samples=wav.shape[0],
+        finite=bool(np.isfinite(wav).all()),
+        mrf_bf16_launches=mrfk.counter_bf16.count)
+    require(wav.shape == (frames * hop,) and np.isfinite(wav).all(),
+            f"spec2wav_streaming: bad output {wav.shape}")
+    require(mrfk.counter_bf16.count > 0,
+            "spec2wav_streaming: the bf16 MRF kernel was not launched")
 
 
 def breakdown(t0, torch, infer, req, label="breakdown request 0"):
@@ -458,39 +635,103 @@ class _Recorder:
         return a.clone()
 
 
-def phase_small(t0, torch, np, wav_np):
-    """Tiny model on the card (kernels) vs on the CPU (plain twins)."""
-    from stylesinger_torch.config import tiny_test_config
-    from stylesinger_torch.kernels import mel as melk
-    from stylesinger_torch.kernels import mrf as mrfk
-
-    cfg = tiny_test_config(hop_size=64, mrf_block=64)
+def small_pair(t0, torch, np, cfg, wav_np, label):
+    """A tiny model on the card (kernels) and on the CPU (plain twins), the
+    same weights, input and noise: fails unless mel, f0 and wav agree."""
     phones = sorted(set(EXAMPLE["ph"].split()))
     cpu = make_infer(cfg, phones, "cpu", SEED, frames=6)
     gpu = make_infer(cfg, phones, "cuda", SEED, frames=6)
     req = dict(cut(EXAMPLE, 6), ref_audio=wav_np[:48000])
     b_cpu = cpu.preprocess_input(req)
-    before = (melk.counter.count, mrfk.counter.count)
+    for ctr in counters().values():
+        ctr.reset()
     b_gpu = gpu.preprocess_input(req)
     rec = _Recorder(SEED)
     out_cpu = cpu.forward_model(b_cpu, noise=rec)
     out_gpu = gpu.forward_model(b_gpu, noise=_Replay(rec.draws, "cuda"))
-    launches = (melk.counter.count - before[0],
-                mrfk.counter.count - before[1])
+    launches = {k: c.count for k, c in counters().items()}
     mel_err = float((b_gpu["ref_mels"].cpu() - b_cpu["ref_mels"]).abs().max())
     errs = {k: float(np.abs(out_gpu[k] - out_cpu[k]).max())
             if out_gpu[k].shape == out_cpu[k].shape else float("inf")
             for k in ("mel", "f0", "wav")}
-    say("small input", t0, frames=out_cpu["mel"].shape[0],
-        phones=len(req["ph"].split()),
-        ref_mel_err=f"{mel_err:.2e}",
+    frames = out_cpu["mel"].shape[0]
+    say(f"small {label}", t0, frames=frames,
+        phones=len(req["ph"].split()), ref_mel_err=f"{mel_err:.2e}",
         **{f"{k}_err": f"{v:.2e}" for k, v in errs.items()},
-        tol="1e-3", launches=launches)
-    require(out_cpu["mel"].shape[0] > 0, "small input: no frames")
+        tol="1e-3", mel_launches=launches["mel_spectrogram"],
+        mrf_launches=launches["fused_mrf_blocks"],
+        mrf_routes=gpu.vocoder.mrf_routes(frames))
+    require(frames > 0, f"small {label}: no frames")
     require(mel_err <= 3e-3 and all(v <= 1e-3 for v in errs.values()),
-            f"small input: card and CPU disagree {errs}")
-    require(launches[0] > 0 and launches[1] > 0,
-            "small input: a kernel was not launched")
+            f"small {label}: card and CPU disagree {errs}")
+    require(launches["mel_spectrogram"] == 1,
+            f"small {label}: the mel kernel was not launched once")
+    return launches
+
+
+def phase_small(t0, torch, np, wav_np):
+    """Small inputs, the card against the CPU: the tiny model; the ProDiff
+    / FFT-denoiser / conv-pitch model with a ResBlock2 vocoder; a generator
+    past the MRF kernel's reach; the mel kernel at n_fft 2048 and 1000."""
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.inference import init_random_
+    from stylesinger_torch.kernels import mel as melk
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.models.hifigan import HifiGanGenerator
+
+    launches = small_pair(t0, torch, np, tiny_test_config(
+        hop_size=64, mrf_block=64), wav_np, "input")
+    require(launches["fused_mrf_blocks"] > 0,
+            "small input: the MRF kernel was not launched")
+    launches = small_pair(t0, torch, np, tiny_test_config(
+        hop_size=64, mrf_block=64, f0_gen="conv", decoder="prodiff",
+        diff_decoder_type="fft", resblock="2"), wav_np,
+        "prodiff_fft_conv_resblock2")
+    require(launches["fused_mrf_blocks"] == 0,
+            "small ResBlock2: a stage went to the MRF kernel")
+
+    # a generator with k = 11, d = 7 (reach 70 > 64): the resblock modules
+    cfg = tiny_test_config(mrf_block=64, resblock_kernel_sizes=(3, 11),
+                           resblock_dilation_sizes=((1, 3), (1, 7)))
+    cpu = HifiGanGenerator(cfg)
+    init_random_(cpu, torch.Generator().manual_seed(SEED), conv_std=0.05)
+    gpu = HifiGanGenerator(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to("cuda")
+    mel = torch.randn((1, 40, cfg["audio_num_mel_bins"]),
+                      generator=torch.Generator().manual_seed(SEED))
+    f0 = torch.full((1, 40), 220.0)
+    rec = _Recorder(SEED)
+    ref = cpu(mel, f0, rec)
+    for ctr in counters().values():
+        ctr.reset()
+    out = gpu(mel.cuda(), f0.cuda(), _Replay(rec.draws, "cuda")).cpu()
+    err = float((out - ref).abs().max())
+    say("small reach>64 generator", t0, reach=10 * 7,
+        mrf_routes=gpu.mrf_routes(40), wav_err=f"{err:.2e}", tol="1e-5",
+        mrf_launches=counters()["fused_mrf_blocks"].count)
+    require(err <= 1e-5, f"reach>64 generator: card and CPU differ {err}")
+    require(counters()["fused_mrf_blocks"].count == 0,
+            "reach>64 generator: a stage went to the MRF kernel")
+
+    dev = torch.device("cuda")
+    wav = torch.as_tensor(wav_np, device=dev)
+    for n_fft, hop in ((2048, 512), (1000, 250)):
+        kw = dict(sample_rate=48000, n_fft=n_fft, hop_size=hop,
+                  win_length=n_fft, n_mels=80, fmin=20.0, fmax=24000.0)
+        consts = melk._constants(48000, n_fft, n_fft, 80, 20.0, 24000.0, dev)
+        melk.counter.reset()
+        out = melk.mel_spectrogram(wav, **kw)
+        ref = melk.mel_spectrogram_plain(wav, *consts, hop, 1e-6)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ok = bool(torch.allclose(out, ref, **MEL_TOL))
+        say(f"small mel n_fft={n_fft}", t0, shape=tuple(out.shape),
+            branch="fft" if n_fft & (n_fft - 1) == 0 else "dft",
+            max_abs_err=f"{err:.3e}", tol="atol3e-3/rtol2e-3", ok=ok,
+            mel_launches=melk.counter.count)
+        require(ok and melk.counter.count == 1,
+                f"mel kernel at n_fft {n_fft}: {err}")
 
 
 def main() -> int:
@@ -512,14 +753,18 @@ def main() -> int:
     try:
         smi = phase_env(t0, torch)
         cfg = load_config()
+        recipe = load_config(recipe="stylesinger")
         wav_np = reference_clip(np, sr=cfg["audio_sample_rate"])
         mel, mel_timed = phase_mel(t0, torch, np, wav_np)
         mrf, mrf_timed = phase_mrf(t0, torch, np, cfg)
-        kernels = [mel, mrf]
-        launches, again = phase_requests(t0, torch, np, cfg, wav_np)
+        mrf16, mrf16_timed = phase_mrf(t0, torch, np, recipe, bf16=True)
+        kernels = [mel, mrf, mrf16]
+        launches, infer, again = phase_requests(t0, torch, np, cfg, recipe,
+                                                wav_np)
+        phase_streaming(t0, torch, np, infer, wav_np)
         phase_small(t0, torch, np, wav_np)
-        phase_device(t0, torch, mel_timed + mrf_timed)
-        again(label="breakdown request 0 after profiling")
+        phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
+        again(label="breakdown recipe request 0 after profiling")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,9 +1,11 @@
 """Configuration of the port: the flagship defaults as Python.
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
-ported modules read, ``apply_spec_stats`` and ``tiny_test_config``.  The
-flagship configuration *is* the defaults, so no YAML reader is needed:
-``load_config()`` returns a deep copy of ``DEFAULTS`` with keyword
+ported modules read, ``apply_spec_stats`` and ``tiny_test_config``.  No YAML
+reader is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for
+each recipe of ``egs/``, the keys the port reads where the recipe and its
+bases differ from the defaults, and ``load_config(recipe=..., **overrides)``
+returns a deep copy of ``DEFAULTS`` with the recipe and then the keyword
 overrides applied.
 """
 
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional
 
 
@@ -79,8 +82,8 @@ DEFAULTS: Dict[str, Any] = dict(
     emo=True,
     style=True,
     umln=True,
-    f0_gen="gmdiff",       # the only F0 generator ported
-    decoder="diffsinger",  # the only decoder ported
+    f0_gen="gmdiff",       # gmdiff | conv
+    decoder="diffsinger",  # diffsinger | fft | prodiff
     use_nsf=True,
     # --- transformer dims (egs/egs_bases/tts/base.yaml:64-76) ---
     hidden_size=256,
@@ -91,6 +94,7 @@ DEFAULTS: Dict[str, Any] = dict(
     dec_ffn_kernel_size=9,
     # --- duration predictor (egs/egs_bases/tts/fs2.yaml) ---
     predictor_hidden=-1,
+    predictor_kernel=5,    # the conv pitch predictors (f0_gen: conv)
     dur_predictor_kernel=3,
     dur_predictor_layers=2,
     # --- pitch ---
@@ -122,17 +126,20 @@ DEFAULTS: Dict[str, Any] = dict(
     f0_residual_layers=10,
     f0_residual_channels=192,
     f0_dilation_cycle_length=4,
-    # strided F0 sampler: only 1 (the 100-step ancestral chain) is ported
+    # >1 strides the F0 sampler (DDIM for f0, strided posterior for uv)
     f0_speedup=1,
     # --- mel diffusion (egs/stylesinger.yaml:137-147) ---
     timesteps=100,
     K_step=100,
     max_beta=0.06,
     schedule_type="linear",
-    diff_decoder_type="wavenet",
-    # PLMS / DPM++ mel samplers: not ported, so 1 and 0
+    diff_decoder_type="wavenet",  # wavenet | fft
+    # >1: PLMS mel sampling; dpm_steps > 0: DPM-Solver++(2M) with that many
+    # denoiser calls (takes precedence over pndm_speedup)
     pndm_speedup=1,
     dpm_steps=0,
+    # the shallow diffusion's conditioner includes the decoder input
+    use_txt_cond=True,
     residual_layers=20,
     residual_channels=256,
     dilation_cycle_length=4,
@@ -149,21 +156,75 @@ DEFAULTS: Dict[str, Any] = dict(
     resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
     harmonic_num=8,
     # overlap-save block length for the generator's MRF groups (0 = off);
-    # blocked groups of stages with <= 128 channels run the MRF kernel
+    # the blocked groups the kernel takes run the MRF kernel
+    # (models/hifigan.py::HifiGanGenerator.mrf_route)
     mrf_block=2048,
-    # the generator runs in float32 (the only dtype ported)
+    # float32 | bfloat16 (the recipe's; the MRF kernel's bf16 mode)
     vocoder_compute_dtype="float32",
+    # > 0: spectral-subtraction denoise of the vocoder's output
+    vocoder_denoise_c=0.0,
     # --- data ---
     binary_data_dir="data/binary/style",
 )
 
 
-def load_config(**kwargs: Any) -> Config:
-    """Defaults <- keyword overrides (the flagship is ``load_config()``)."""
+# The keys the port reads where a recipe of ``egs/`` (with its bases)
+# differs from DEFAULTS; tests/test_torch_config.py holds each against the
+# JAX package's ``load_config("egs/<name>.yaml")``.
+RECIPES: Dict[str, Dict[str, Any]] = {
+    # egs/stylesinger.yaml
+    "stylesinger": dict(vocoder_compute_dtype="bfloat16"),
+}
+
+
+def load_config(recipe: Optional[str] = None, **kwargs: Any) -> Config:
+    """Defaults <- ``RECIPES[recipe]`` <- keyword overrides.  The config
+    defaults are ``load_config()``; the repo's recipe is
+    ``load_config(recipe="stylesinger")``."""
     cfg = Config(json.loads(json.dumps(DEFAULTS)))  # deep copy
+    if recipe is not None:
+        if recipe not in RECIPES:
+            raise KeyError(f"unknown recipe {recipe!r}; known: "
+                           f"{sorted(RECIPES)}")
+        cfg.update(json.loads(json.dumps(RECIPES[recipe])))
     cfg.update(kwargs)
     apply_spec_stats(cfg, set(kwargs))
     return cfg
+
+
+def _coerce(value: str) -> Any:
+    if value.lower() in ("true", "false"):
+        return value.lower() == "true"
+    if value.lower() in ("none", "null"):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            pass
+    if value.startswith(("[", "{", "(")):
+        try:
+            return json.loads(value.replace("(", "[").replace(")", "]"))
+        except json.JSONDecodeError:
+            pass
+    return value
+
+
+def parse_hparams(overrides: str) -> Dict[str, Any]:
+    """``"a=1,b=[2,3]"`` -> {"a": 1, "b": [2, 3]}, values coerced as the
+    JAX package's ``--hparams`` does (commas inside brackets stay).  The
+    port's config is flat: a dotted key raises."""
+    out: Dict[str, Any] = {}
+    for part in re.split(r",(?![^\[\(]*[\]\)])", overrides or ""):
+        if not part.strip():
+            continue
+        key, value = part.split("=", 1)
+        key = key.strip()
+        if "." in key:
+            raise ValueError(f"--hparams {key!r}: the port's config has no "
+                             "nested keys")
+        out[key] = _coerce(value.strip())
+    return out
 
 
 def apply_spec_stats(cfg: Config, explicit: Optional[set] = None) -> Config:

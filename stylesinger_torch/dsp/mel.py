@@ -132,3 +132,20 @@ def load_wav(path: str, sample_rate: int) -> np.ndarray:
         t_out = np.arange(int(round(len(data) * sample_rate / sr))) * (sr / sample_rate)
         data = np.interp(t_out, np.arange(len(data)), data).astype(np.float32)
     return data
+
+
+def save_wav(wav: np.ndarray, path: str, sample_rate: int,
+             norm: bool = False) -> None:
+    """16-bit PCM mono WAV (clipped to [-1, 1]; ``norm`` peaks it at
+    0.95)."""
+    import wave
+
+    wav = np.asarray(wav, dtype=np.float32)
+    if norm and np.abs(wav).max() > 0:
+        wav = wav / np.abs(wav).max() * 0.95
+    pcm = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())

@@ -2,8 +2,9 @@
 
 ref wav -> log-mel (mel kernel) + F0 (autocorrelation tracker) + speaker and
 emotion d-vectors (GE2E encoders); phones + notes -> ``StyleSinger``
-(durations -> RSA style -> dual F0 diffusion -> shallow mel diffusion) ->
-NSF HiFi-GAN (MRF kernel on the blocked small-channel stages) -> wav.
+(durations -> RSA style -> pitch -> decoder, ``models/stylesinger.py``) ->
+NSF HiFi-GAN (the MRF kernel on the blocked stages it takes,
+``models/hifigan.py``) -> wav.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no GPU it
 raises rather than fall back to the CPU.

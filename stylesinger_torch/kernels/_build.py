@@ -145,6 +145,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ss_mel_spectrogram.restype = i
     lib.ss_mrf_step.argtypes = [p] * 8 + [i] * 10 + [f, p]
     lib.ss_mrf_step.restype = i
+    lib.ss_mrf_step_bf16.argtypes = [p] * 8 + [i] * 11 + [f, p]
+    lib.ss_mrf_step_bf16.restype = i
+    lib.ss_mrf_occupancy.argtypes = [i, i, i, i, p, p]
+    lib.ss_mrf_occupancy.restype = i
 
 
 def check(status: int, name: str) -> None:

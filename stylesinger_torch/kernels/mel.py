@@ -6,10 +6,11 @@ zero-center-padded frames x periodic Hann window -> real DFT -> magnitude
 the kernel (an FFT, two real frames per complex transform) and the twin (a
 direct DFT): an f32 direct DFT leaves about 1e-6 of rounding noise in every
 bin, which log10 near its 1e-6 floor turns into errors of several 1e-2 on
-the nearly empty bins of a clean voice.  On a CUDA tensor
-:func:`mel_spectrogram` launches the kernel; on a CPU tensor it runs
-:func:`mel_spectrogram_plain`, the same arithmetic in plain PyTorch, which
-is also the golden the kernel is held against on the card.
+the nearly empty bins of a clean voice.  The kernel takes every n_fft from
+2 to 4096: a power of two runs the FFT, any other size a direct f64 DFT.
+On a CUDA tensor :func:`mel_spectrogram` launches the kernel; on a CPU
+tensor it runs :func:`mel_spectrogram_plain`, the same arithmetic in plain
+PyTorch, which is also the golden the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from stylesinger_torch.dsp.mel import (
 from stylesinger_torch.kernels._build import LaunchCounter, check, library
 
 counter = LaunchCounter()
-MAX_N_FFT = 1024  # the kernel's FFT buffers hold <= 1024 points
+MAX_N_FFT = 4096  # powers of two take the FFT, other sizes the direct DFT
 
 
 @functools.lru_cache(maxsize=8)
@@ -100,9 +101,9 @@ def mel_spectrogram(wav: torch.Tensor, *, sample_rate: int = 48000,
                          f"got {wav.dtype} {tuple(wav.shape)}")
     if not wav.is_contiguous():
         raise ValueError("mel_spectrogram: wav must be contiguous")
-    if n_fft > MAX_N_FFT or n_fft < 2 or n_fft & (n_fft - 1):
-        raise ValueError(f"mel_spectrogram: n_fft {n_fft} is not a power "
-                         f"of two in [2, {MAX_N_FFT}]")
+    if not 2 <= n_fft <= MAX_N_FFT:
+        raise ValueError(f"mel_spectrogram: n_fft {n_fft} is not in "
+                         f"[2, {MAX_N_FFT}]")
     window, _, _, mel_t = consts
     bands = _bands(sample_rate, n_fft, n_mels, float(fmin), float(fmax),
                    wav.device)

@@ -47,14 +47,17 @@ class Conv(nn.Module):
         self.pad = tuple(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Runs in x's type (the f32 weights are cast to a bf16 x's type,
+        as a flax ``Conv(dtype=bfloat16)`` casts its parameters)."""
         y = x.transpose(1, 2)
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         left, right = self.pad
         if left == right:
-            y = F.conv1d(y, self.weight, self.bias, self.stride, left,
-                         self.dilation)
+            y = F.conv1d(y, w, b, self.stride, left, self.dilation)
         else:
-            y = F.conv1d(F.pad(y, (left, right)), self.weight, self.bias,
-                         self.stride, 0, self.dilation)
+            y = F.conv1d(F.pad(y, (left, right)), w, b, self.stride, 0,
+                         self.dilation)
         return y.transpose(1, 2)
 
 
@@ -299,6 +302,29 @@ class DurationPredictor(nn.Module):
     def out2dur(log_dur: torch.Tensor, offset: float = 1.0) -> torch.Tensor:
         return torch.clamp_min(torch.round(torch.exp(log_dur) - offset),
                                0.0).long()
+
+
+class PitchPredictor(nn.Module):
+    """(x + alpha * positions) -> n x (conv k -> relu -> LN) -> dense(odim),
+    with a learned scale ``pos_embed_alpha`` on the sinusoidal positions."""
+
+    def __init__(self, c_in: int, hidden: int, odim: int = 2,
+                 n_layers: int = 5, kernel_size: int = 5):
+        super().__init__()
+        self.n_layers = n_layers
+        self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        self.pos = SinusoidalPositionalEmbedding(c_in)
+        for i in range(n_layers):
+            setattr(self, f"conv_{i}",
+                    Conv(c_in if i == 0 else hidden, hidden, kernel_size))
+            setattr(self, f"ln_{i}", LayerNorm(hidden))
+        self.out = nn.Linear(hidden, odim)
+
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+        x = x + self.pos_embed_alpha * self.pos(nonpadding)
+        for i in range(self.n_layers):
+            x = getattr(self, f"ln_{i}")(F.relu(getattr(self, f"conv_{i}")(x)))
+        return self.out(x)
 
 
 def length_regulator(dur: torch.Tensor, dur_padding: torch.Tensor,

@@ -1,5 +1,6 @@
-"""DiffWave-style denoisers (port of ``stylesinger_tpu/models/diffnet.py``):
-``DiffNet`` (mel) and ``DDiffNet`` (joint f0 + uv), batch-first."""
+"""Denoisers (port of ``stylesinger_tpu/models/diffnet.py``), batch-first:
+the DiffWave-style ``DiffNet`` (mel) and ``DDiffNet`` (joint f0 + uv), and
+the transformer ``FFTDenoiser`` (mel, ``diff_decoder_type: fft``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stylesinger_torch.models.common import Conv
+from stylesinger_torch.models.common import Conv, FastspeechDecoder
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -113,3 +114,29 @@ class DDiffNet(_Stack):
         x = torch.cat([self.input_projection(f0), self.uv_embed(uv)],
                       dim=-1) * mask
         return self.run(x, t, cond) * mask
+
+
+class FFTDenoiser(nn.Module):
+    """Transformer mel denoiser: spec [B, T, M] + t [B] + cond [B, T, H] ->
+    [B, T, M].  A 1x1 input projection, the diffusion-step MLP, one dense
+    over [x | cond | step], a FastSpeech decoder stack whose padding is
+    read off the (masked) conditioner, and a mel head."""
+
+    def __init__(self, in_dims: int = 80, hidden_size: int = 256,
+                 residual_channels: int = 256, num_layers: int = 4,
+                 kernel_size: int = 9, num_heads: int = 2):
+        super().__init__()
+        dim = residual_channels
+        self.input_projection = Conv(in_dims, dim, 1)
+        self.mlp = DiffusionStepMLP(dim)
+        self.get_decode_inp = nn.Linear(2 * dim + hidden_size, hidden_size)
+        self.decoder = FastspeechDecoder(hidden_size, num_layers,
+                                         kernel_size, num_heads=num_heads)
+        self.get_mel_out = nn.Linear(hidden_size, in_dims)
+
+    def forward(self, spec, t, cond):
+        x = self.input_projection(spec)
+        step = self.mlp(t)[:, None, :].expand(-1, x.shape[1], -1)
+        h = self.get_decode_inp(torch.cat([x, cond, step], dim=-1))
+        nonpadding = (cond.abs().sum(-1) > 1e-8).to(torch.float32)
+        return self.get_mel_out(self.decoder(h, nonpadding))

@@ -1,7 +1,8 @@
-"""Diffusion math and the flagship samplers (port of
+"""Diffusion math and the samplers (port of
 ``stylesinger_tpu/models/diffusion.py``): schedules, Gaussian and log-space
-multinomial steps, the dual joint f0 + uv sampler and the shallow mel
-sampler.
+multinomial steps, the dual joint f0 + uv sampler (ancestral, or strided
+with ``speedup > 1``), the shallow mel samplers (ancestral, PLMS and
+DPM-Solver++(2M)) and the ProDiff sampler.
 
 The samplers take their randomness from a noise source (:class:`Noise`, or
 any object with ``normal(shape)`` and ``uniform(shape)``), drawn in the
@@ -44,23 +45,25 @@ class Noise:
                           device=self.device)
 
 
-class Schedule(nn.Module):
-    """Diffusion schedule buffers (f32), moved with the owning model."""
+def linear_beta_schedule(timesteps: int, max_beta: float) -> np.ndarray:
+    return np.linspace(1e-4, max_beta, timesteps)
 
-    def __init__(self, timesteps: int, max_beta: float,
-                 schedule_type: str = "linear"):
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    steps = timesteps + 1
+    x = np.linspace(0, steps, steps)
+    ac = np.cos(((x / steps) + s) / (1 + s) * np.pi * 0.5) ** 2
+    ac = ac / ac[0]
+    return np.clip(1 - (ac[1:] / ac[:-1]), 0, 0.999)
+
+
+class Schedule(nn.Module):
+    """Diffusion schedule buffers (f32) of ``betas``, moved with the owning
+    model."""
+
+    def __init__(self, betas: np.ndarray):
         super().__init__()
-        if schedule_type == "linear":
-            betas = np.linspace(1e-4, max_beta, timesteps)
-        elif schedule_type == "cosine":
-            steps = timesteps + 1
-            x = np.linspace(0, steps, steps)
-            ac = np.cos(((x / steps) + 0.008) / 1.008 * np.pi * 0.5) ** 2
-            ac = ac / ac[0]
-            betas = np.clip(1 - (ac[1:] / ac[:-1]), 0, 0.999)
-        else:
-            raise ValueError(schedule_type)
-        betas = betas.astype(np.float64)
+        betas = np.asarray(betas, np.float64)
         alphas = 1.0 - betas
         ac = np.cumprod(alphas)
         ac_prev = np.append(1.0, ac[:-1])
@@ -97,7 +100,38 @@ class Schedule(nn.Module):
 
 def make_schedule(timesteps: int, max_beta: float,
                   schedule_type: str = "linear") -> Schedule:
-    return Schedule(timesteps, max_beta, schedule_type)
+    if schedule_type == "linear":
+        return Schedule(linear_beta_schedule(timesteps, max_beta))
+    if schedule_type == "cosine":
+        return Schedule(cosine_beta_schedule(timesteps))
+    raise ValueError(schedule_type)
+
+
+def vpsde_beta_t(t: int, big_t: int, min_beta: float,
+                 max_beta: float) -> float:
+    t_coef = (2 * t - 1) / (big_t ** 2)
+    return 1.0 - np.exp(-min_beta / big_t -
+                        0.5 * (max_beta - min_beta) * t_coef)
+
+
+def prodiff_betas(timesteps: int, schedule_mode: str = "vpsde",
+                  min_beta: float = 0.1, max_beta: float = 40.0,
+                  s: float = 0.008) -> np.ndarray:
+    """The ProDiff teacher's noise schedules."""
+    if schedule_mode == "linear":
+        return np.linspace(1e-6, 0.01, timesteps)
+    if schedule_mode == "cosine":
+        return cosine_beta_schedule(timesteps, s)
+    if schedule_mode == "vpsde":
+        return np.array([vpsde_beta_t(t, timesteps, min_beta, max_beta)
+                         for t in range(1, timesteps + 1)])
+    raise ValueError(schedule_mode)
+
+
+def make_prodiff_schedule(timesteps: int,
+                          schedule_mode: str = "vpsde") -> Schedule:
+    """ProDiff's schedule, with ``timesteps + 1`` entries as in JAX."""
+    return Schedule(prodiff_betas(timesteps + 1, schedule_mode))
 
 
 def _extract(buf: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -206,12 +240,19 @@ def log_sample_categorical(noise, logits: torch.Tensor,
 
 def sample_gm_dual(denoise_fn_a: Callable, denoise_fn_b: Callable,
                    sched: Schedule, cond_T: int, batch: int, noise,
-                   dyn_clip: Optional[Tuple] = None, num_classes: int = 2):
-    """Both joint f0 + uv reverse chains, ancestral (the un-strided path).
+                   dyn_clip: Optional[Tuple] = None, num_classes: int = 2,
+                   speedup: int = 1):
+    """Both joint f0 + uv reverse chains: ancestral at ``speedup`` 1,
+    strided (:func:`_sample_gm_dual_strided`) above it.
 
-    Draws: normal z_a, normal z_b, uniform u_a, uniform u_b, then for each
-    step t = T-1 .. 0 and chain a then b: normal (f0 step), uniform (uv
-    step).  Returns ((f0_a [B, T, 1], uv_a [B, T]), (f0_b, uv_b))."""
+    Ancestral draws: normal z_a, normal z_b, uniform u_a, uniform u_b, then
+    for each step t = T-1 .. 0 and chain a then b: normal (f0 step),
+    uniform (uv step).  Returns ((f0_a [B, T, 1], uv_a [B, T]),
+    (f0_b, uv_b))."""
+    if speedup > 1:
+        return _sample_gm_dual_strided(
+            denoise_fn_a, denoise_fn_b, sched, cond_T, batch, noise,
+            dyn_clip=dyn_clip, num_classes=num_classes, speedup=speedup)
     dev = sched.betas.device
     z_a = noise.normal((batch, cond_T, 1))
     z_b = noise.normal((batch, cond_T, 1))
@@ -249,6 +290,203 @@ def sample_shallow(denoise_fn: Callable, sched: Schedule,
         t = torch.full((b,), step, dtype=torch.long, device=dev)
         x = gaussian_p_sample(sched, x, t, denoise_fn(x, t), noise,
                               clip=(-1.0, 1.0))
+    return x
+
+
+def _gaussian_ddim_jump(sched: Schedule, x: torch.Tensor, t: torch.Tensor,
+                        t_prev: torch.Tensor, eps_pred: torch.Tensor,
+                        clip: Tuple) -> torch.Tensor:
+    """Deterministic DDIM (eta = 0) jump t -> t_prev (t_prev < 0 lands on
+    x0), with the ancestral sampler's x0 clipping."""
+    x0 = torch.clamp(predict_start_from_noise(sched, x, t, eps_pred),
+                     clip[0], clip[1])
+    sr = _extract(sched.sqrt_recip_alphas_cumprod, t, x.ndim)
+    srm1 = _extract(sched.sqrt_recipm1_alphas_cumprod, t, x.ndim)
+    eps = (sr * x - x0) / srm1
+    ac_prev = _extract(sched.alphas_cumprod, torch.clamp_min(t_prev, 0),
+                       x.ndim)
+    landed = t_prev.reshape((-1,) + (1,) * (x.ndim - 1)) < 0
+    ac_prev = torch.where(landed, torch.ones_like(ac_prev), ac_prev)
+    return torch.sqrt(ac_prev) * x0 + torch.sqrt(1.0 - ac_prev) * eps
+
+
+def _log1mexp(a: torch.Tensor) -> torch.Tensor:
+    """log(1 - exp(a)) for a <= 0, safe at a -> 0."""
+    return torch.log(torch.clamp_min(-torch.expm1(a), 1e-30))
+
+
+def cat_q_posterior_strided(sched, log_x_start, log_x_t, t, t_prev,
+                            num_classes):
+    """q(x_{t_prev} | x_t, x0 distribution) across a stride: the forward
+    kernel over (t_prev, t] keeps ca_t / ca_{t_prev}.  Equals
+    :func:`cat_q_posterior` at t_prev = t - 1."""
+    ndim = log_x_t.ndim
+    tp = torch.clamp_min(t_prev, 0)
+    lca_t = _extract(sched.log_cumprod_alpha, t, ndim)
+    lca_p = _extract(sched.log_cumprod_alpha, tp, ndim)
+    tp_neg = t_prev.reshape((-1,) + (1,) * (ndim - 1)) < 0
+    lca_p = torch.where(tp_neg, torch.zeros_like(lca_p), lca_p)
+    log_span = lca_t - lca_p
+    log_qxt = log_add_exp(log_x_t + log_span,
+                          _log1mexp(log_span) - np.log(num_classes))
+    log_ev = cat_q_pred(sched, log_x_start, tp, num_classes)
+    log_ev = torch.where(tp_neg, log_x_start, log_ev)
+    unnormed = log_ev + log_qxt
+    return unnormed - torch.logsumexp(unnormed, dim=1, keepdim=True)
+
+
+def _sample_gm_dual_strided(denoise_fn_a: Callable, denoise_fn_b: Callable,
+                            sched: Schedule, cond_T: int, batch: int, noise,
+                            dyn_clip: Optional[Tuple] = None,
+                            num_classes: int = 2, speedup: int = 5):
+    """Both joint f0 + uv chains with strided jumps: DDIM (eta = 0) for f0,
+    the strided categorical posterior for uv, over t = T-1, T-1-speedup,
+    ... and a last jump to t_prev = -1.
+
+    Draws: normal z_a, normal z_b, uniform u_a, uniform u_b, then for each
+    step and chain a then b one uniform (the uv step)."""
+    dev = sched.betas.device
+    z_a = noise.normal((batch, cond_T, 1))
+    z_b = noise.normal((batch, cond_T, 1))
+    zeros = torch.zeros((batch, num_classes, cond_T), device=dev)
+    log_ua = log_sample_categorical(noise, zeros, num_classes)
+    log_ub = log_sample_categorical(noise, zeros, num_classes)
+    clip = dyn_clip if dyn_clip is not None else (-1.0, 1.0)
+
+    def half_step(fn, z, log_u, t, t_prev):
+        out = fn(z, log_onehot_to_index(log_u), t)
+        logits = out[..., 1:].transpose(1, 2)
+        z = _gaussian_ddim_jump(sched, z, t, t_prev, out[..., :1], clip)
+        log_model = cat_q_posterior_strided(
+            sched, torch.log_softmax(logits, dim=1), log_u, t, t_prev,
+            num_classes)
+        return z, log_sample_categorical(noise, log_model, num_classes)
+
+    ts = np.arange(sched.num_timesteps - 1, -1, -speedup)
+    tps = np.concatenate([ts[1:], [-1]])
+    for step, step_prev in zip(ts, tps):
+        t = torch.full((batch,), int(step), dtype=torch.long, device=dev)
+        tp = torch.full((batch,), int(step_prev), dtype=torch.long,
+                        device=dev)
+        z_a, log_ua = half_step(denoise_fn_a, z_a, log_ua, t, tp)
+        z_b, log_ub = half_step(denoise_fn_b, z_b, log_ub, t, tp)
+    return ((z_a, log_onehot_to_index(log_ua).to(torch.float32)),
+            (z_b, log_onehot_to_index(log_ub).to(torch.float32)))
+
+
+def sample_shallow_plms(denoise_fn: Callable, sched: Schedule,
+                        coarse_norm: torch.Tensor, noise, K_step: int,
+                        speedup: int) -> torch.Tensor:
+    """PLMS shallow sampling: q-sample the coarse mel to t = K-1, then steps
+    t = K - speedup, K - 2 speedup, ..., 0 with an Adams-Bashforth
+    combination of the last noise predictions (orders 1 to 4).  The first
+    step is the order-1 predictor-corrector and calls the denoiser twice,
+    so K / speedup + 1 calls in all.  Draws: one normal (the q-sample)."""
+    b = coarse_norm.shape[0]
+    dev = coarse_norm.device
+    interval = speedup
+    t0 = torch.full((b,), K_step - 1, dtype=torch.long, device=dev)
+    x = gaussian_q_sample(sched, coarse_norm, t0,
+                          noise.normal(coarse_norm.shape))
+    ac = sched.alphas_cumprod
+
+    def get_x_pred(x, noise_t, t):
+        a_t = _extract(ac, t, x.ndim)
+        a_prev = _extract(ac, torch.clamp_min(t - interval, 0), x.ndim)
+        sq_t, sq_prev = torch.sqrt(a_t), torch.sqrt(a_prev)
+        x_delta = (a_prev - a_t) * (
+            (1.0 / (sq_t * (sq_t + sq_prev))) * x -
+            1.0 / (sq_t * (torch.sqrt((1 - a_prev) * a_t) +
+                           torch.sqrt((1 - a_t) * a_prev))) * noise_t)
+        return x + x_delta
+
+    n1 = n2 = n3 = torch.zeros_like(x)
+    for idx, step in enumerate(range(K_step - interval, -1, -interval)):
+        t = torch.full((b,), step, dtype=torch.long, device=dev)
+        noise_pred = denoise_fn(x, t)
+        if idx == 0:
+            x_pred = get_x_pred(x, noise_pred, t)
+            noise_prev = denoise_fn(x_pred, torch.clamp_min(t - interval, 0))
+            prime = (noise_pred + noise_prev) / 2
+        elif idx == 1:
+            prime = (3 * noise_pred - n1) / 2
+        elif idx == 2:
+            prime = (23 * noise_pred - 16 * n1 + 5 * n2) / 12
+        else:
+            prime = (55 * noise_pred - 59 * n1 + 37 * n2 - 9 * n3) / 24
+        x = get_x_pred(x, prime, t)
+        n1, n2, n3 = noise_pred, n1, n2
+    return x
+
+
+def dpmpp_grid(sched: Schedule, K_step: int, n_steps: int):
+    """DPM-Solver++(2M)'s timestep grid (descending, unique) and its
+    per-step constants [n, 3] (sigma ratio, gain, r), computed in f64 and
+    cast to f32 as the JAX sampler does."""
+    ac = sched.alphas_cumprod.detach().cpu().double().numpy()
+    ts_f = np.linspace(K_step - 1, 0, max(int(n_steps), 1))
+    ts = np.unique(np.round(ts_f).astype(np.int64))[::-1]
+    n = len(ts)
+    alpha = np.sqrt(ac[ts])
+    sigma = np.sqrt(1.0 - ac[ts])
+    lam = np.log(alpha) - np.log(np.maximum(sigma, 1e-12))
+    h = np.append(lam[1:] - lam[:-1], np.inf)
+    with np.errstate(invalid="ignore"):
+        r = np.append(np.inf, h[:-1])[:n] / np.maximum(h, 1e-12)
+    r = np.nan_to_num(r, posinf=1.0)
+    r[-1] = np.inf  # the sigma -> 0 step is first order
+    sig_ratio = np.append(sigma[1:] / np.maximum(sigma[:-1], 1e-12), 0.0)
+    alpha_next = np.append(alpha[1:], 1.0)
+    phi = np.expm1(-h)
+    phi[-1] = -1.0  # the sigma -> 0 limit
+    consts = np.stack([sig_ratio, alpha_next * -phi, r], -1)
+    return ts, consts.astype(np.float32)
+
+
+def sample_shallow_dpmpp(denoise_fn: Callable, sched: Schedule,
+                         coarse_norm: torch.Tensor, noise, K_step: int,
+                         n_steps: int) -> torch.Tensor:
+    """DPM-Solver++(2M) shallow sampling: one denoiser call per point of
+    :func:`dpmpp_grid`; the last step lands on the x0 prediction.  Draws:
+    one normal (the q-sample)."""
+    b = coarse_norm.shape[0]
+    dev = coarse_norm.device
+    t0 = torch.full((b,), K_step - 1, dtype=torch.long, device=dev)
+    x = gaussian_q_sample(sched, coarse_norm, t0,
+                          noise.normal(coarse_norm.shape))
+    ts, consts = dpmpp_grid(sched, K_step, n_steps)
+    prev_x0 = torch.zeros_like(x)
+    one = np.float32(1.0)
+    for idx, (step, (sig_ratio, gain, r)) in enumerate(zip(ts, consts)):
+        t = torch.full((b,), int(step), dtype=torch.long, device=dev)
+        eps = denoise_fn(x, t)
+        a_t = _extract(sched.sqrt_alphas_cumprod, t, x.ndim)
+        s_t = _extract(sched.sqrt_one_minus_alphas_cumprod, t, x.ndim)
+        x0 = torch.clamp((x - s_t * eps) / a_t, -1.0, 1.0)
+        if idx == 0:
+            d = x0
+        else:
+            # in f32, as JAX computes the coefficients
+            c2 = one / (np.float32(2.0) * np.maximum(r, np.float32(1e-6)))
+            d = float(one + c2) * x0 - float(c2) * prev_x0
+        x = float(sig_ratio) * x + float(gain) * d
+        prev_x0 = x0
+    return x
+
+
+def sample_prodiff(denoise_fn: Callable, sched: Schedule, timesteps: int,
+                   shape: Sequence[int], noise) -> torch.Tensor:
+    """ProDiff: x0-parameterized reverse sampling from pure noise over
+    t = timesteps-1 .. 0.  Draws: normal x_T, then one normal per step
+    (also at t = 0, where it is multiplied by 0)."""
+    dev = sched.betas.device
+    x = noise.normal(shape)
+    for step in range(timesteps - 1, -1, -1):
+        t = torch.full((shape[0],), step, dtype=torch.long, device=dev)
+        mean, log_var = q_posterior(sched, denoise_fn(x, t), x, t)
+        z = noise.normal(x.shape)
+        nonzero = (t > 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        x = mean + nonzero * torch.exp(0.5 * log_var) * z
     return x
 
 

@@ -5,9 +5,15 @@ conv_pre -> per stage [leaky_relu -> ConvTranspose upsample (torch padding
 noise conv -> MRF group] -> leaky_relu(0.01) -> conv_post -> tanh.
 
 MRF groups run over overlap-save blocks when the stage is at least two
-blocks long; the blocked groups of stages with <= 128 channels go through
-the MRF kernel (``kernels/mrf.py``, its plain twin on CPU tensors).  Batch-first
-[B, T, C], f32.
+blocks long.  A blocked group goes through the MRF kernel
+(``kernels/mrf.py``, its plain twin on CPU tensors) when the kernel takes
+its shape: ``ResBlock1``, C <= 128 and every (k - 1) * d <= 64
+(:meth:`HifiGanGenerator.mrf_route`, a function of the config and the
+stage's length, as JAX routes by shape at ``models/hifigan.py:317``); every
+other group runs the resblock modules.  ``resblock: "2"`` always runs the
+modules.  ``vocoder_compute_dtype: bfloat16`` runs every conv in bf16 (the
+MRF kernel in its bf16 mode), with the harmonic source and the final tanh
+in f32, as the JAX generator does.  Batch-first [B, T, C].
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stylesinger_torch.kernels.mrf import fused_mrf_blocks
+from stylesinger_torch.kernels.mrf import fused_mrf_blocks, takes_stage
 from stylesinger_torch.models.common import Conv
 
 LRELU_SLOPE = 0.1
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -112,6 +119,29 @@ class ResBlock1(nn.Module):
         return (kernel_size - 1) // 2 * sum(d + 1 for d in dilations)
 
 
+class ResBlock2(nn.Module):
+    """2 x [lrelu -> dilated conv] (JAX ``models/hifigan.py:157``)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilations: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        for i, d in enumerate(self.dilations):
+            setattr(self, f"conv_{i}",
+                    Conv(channels, channels, kernel_size, dilation=d))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(len(self.dilations)):
+            y = _lrelu(x)
+            x = x + getattr(self, f"conv_{i}")(y if mask is None else y * mask)
+        return x
+
+    @staticmethod
+    def halo(kernel_size: int, dilations: Sequence[int]) -> int:
+        return (kernel_size - 1) // 2 * sum(dilations)
+
+
 def _blockify(x: torch.Tensor, block: int, halo: int
               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """[B, T, C] -> ([B*nb, block+2*halo, C], validity mask, T)."""
@@ -145,59 +175,88 @@ class ConvTranspose(nn.Module):
         self.padding = (kernel_size - stride) // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias,
-                                  self.stride, self.padding).transpose(1, 2)
+        return F.conv_transpose1d(
+            x.transpose(1, 2), self.weight.to(x.dtype),
+            self.bias.to(x.dtype), self.stride, self.padding).transpose(1, 2)
 
 
 class HifiGanGenerator(nn.Module):
-    """mel [B, T, M] + f0 [B, T] -> wav [B, T * prod(upsample_rates)]."""
+    """mel [B, T, M] + f0 [B, T] -> wav [B, T * prod(upsample_rates)].
+
+    Raises on a ``vocoder_compute_dtype`` other than float32 or bfloat16.
+    The MRF kernel raises on C > 128 or a reach (k - 1) * d > 64, so
+    :meth:`mrf_route` sends such stages to the resblock modules."""
 
     def __init__(self, cfg: Any, c_out: int = 1):
         super().__init__()
         c = self.cfg = cfg
-        if str(c.get("resblock", "1")) != "1" or not c.get("use_nsf", True):
-            raise NotImplementedError("only the NSF ResBlock1 generator is "
-                                      "ported")
-        if c.get("vocoder_compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the generator runs in float32")
+        name = c.get("vocoder_compute_dtype", "float32")
+        if name not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"vocoder_compute_dtype {name!r}: "
+                                      "only float32 and bfloat16 run")
+        self.dtype = COMPUTE_DTYPES[name]
+        self.resblock_cls = ResBlock1 if str(c.get("resblock", "1")) == "1" \
+            else ResBlock2
+        self.use_nsf = bool(c.get("use_nsf", True))
         self.rates = tuple(c["upsample_rates"])
         self.rk = tuple(c["resblock_kernel_sizes"])
         self.rd = tuple(tuple(d) for d in c["resblock_dilation_sizes"])
         ch0 = c["upsample_initial_channel"]
         total_up = int(np.prod(self.rates))
-        self.m_source = SourceModuleHnNSF(
-            sampling_rate=c["audio_sample_rate"],
-            harmonic_num=c.get("harmonic_num", 8), hop_size=total_up)
+        if self.use_nsf:
+            self.m_source = SourceModuleHnNSF(
+                sampling_rate=c["audio_sample_rate"],
+                harmonic_num=c.get("harmonic_num", 8), hop_size=total_up)
         self.conv_pre = Conv(c["audio_num_mel_bins"], ch0, 7)
         for i, (u, k) in enumerate(zip(self.rates,
                                        c["upsample_kernel_sizes"])):
             c_prev, c_cur = ch0 // (2 ** i), ch0 // (2 ** (i + 1))
             setattr(self, f"up_{i}", ConvTranspose(c_prev, c_cur, k, u))
-            if i + 1 < len(self.rates):
+            if self.use_nsf:
                 s = int(np.prod(self.rates[i + 1:]))
-                nc = Conv(1, c_cur, 2 * s, stride=s, padding=(s // 2, s // 2))
-            else:
-                nc = Conv(1, c_cur, 1)
-            setattr(self, f"noise_conv_{i}", nc)
+                setattr(self, f"noise_conv_{i}", Conv(
+                    1, c_cur, 2 * s, stride=s, padding=(s // 2, s // 2))
+                    if i + 1 < len(self.rates) else Conv(1, c_cur, 1))
             for j, (rk, rd) in enumerate(zip(self.rk, self.rd)):
-                setattr(self, f"resblock_{i}_{j}", ResBlock1(c_cur, rk, rd))
+                setattr(self, f"resblock_{i}_{j}",
+                        self.resblock_cls(c_cur, rk, rd))
         self.conv_post = Conv(ch0 // (2 ** len(self.rates)), c_out, 7)
         self.mrf_block = int(c.get("mrf_block", 2048))
-        self.mrf_halo = max(ResBlock1.halo(k, d)
+        self.mrf_halo = max(self.resblock_cls.halo(k, d)
                             for k, d in zip(self.rk, self.rd))
+
+    def mrf_route(self, i: int, t_stage: int) -> str:
+        """Where stage i's MRF group runs for a stage of ``t_stage``
+        samples: "kernel" (the MRF kernel over overlap-save blocks),
+        "blocks" (the resblock modules over the same blocks) or "modules"
+        (the resblock modules over the whole stage, shorter than two
+        blocks)."""
+        if not (self.mrf_block and t_stage >= 2 * self.mrf_block):
+            return "modules"
+        c = self.cfg["upsample_initial_channel"] // (2 ** (i + 1))
+        if self.resblock_cls is ResBlock1 and takes_stage(c, self.rk,
+                                                          self.rd):
+            return "kernel"
+        return "blocks"
+
+    def mrf_routes(self, n_frames: int):
+        """:meth:`mrf_route` of every stage for a mel of ``n_frames``."""
+        return [self.mrf_route(i, n_frames * int(np.prod(self.rates[:i + 1])))
+                for i in range(len(self.rates))]
 
     def _mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
         blocks = [getattr(self, f"resblock_{i}_{j}")
                   for j in range(len(self.rk))]
         block, halo = self.mrf_block, self.mrf_halo
-        blocked = bool(block) and x.shape[1] >= 2 * block
-        if not blocked:
+        route = self.mrf_route(i, x.shape[1])
+        if route == "modules":
             return sum(blk(x) for blk in blocks) / len(blocks)
         xb, mask, t = _blockify(x, block, halo)
-        if x.shape[2] <= 128:
+        if route == "kernel":
             yb = fused_mrf_blocks(
                 xb, mask, [blk.kernel_weights() for blk in blocks],
-                kernels=self.rk, dilations=self.rd, block=block, halo=halo)
+                kernels=self.rk, dilations=self.rd, block=block, halo=halo,
+                compute_dtype=x.dtype)
             return _unblockify(yb, x.shape[0], block, 0, t)
         acc = None
         for blk in blocks:
@@ -206,19 +265,23 @@ class HifiGanGenerator(nn.Module):
         return _unblockify(acc / len(blocks), x.shape[0], block, halo, t)
 
     @torch.no_grad()
-    def forward(self, mel: torch.Tensor, f0: torch.Tensor,
+    def forward(self, mel: torch.Tensor, f0: Optional[torch.Tensor],
                 noise) -> torch.Tensor:
+        """Draws (with NSF): the harmonic source's uniform, then normal."""
         total_up = int(np.prod(self.rates))
-        har = self.m_source(torch.repeat_interleave(f0, total_up, dim=-1),
-                            noise)
-        x = self.conv_pre(mel)
+        har = None
+        if self.use_nsf and f0 is not None:
+            har = self.m_source(torch.repeat_interleave(f0, total_up, dim=-1),
+                                noise).to(self.dtype)
+        x = self.conv_pre(mel.to(self.dtype))
         for i, u in enumerate(self.rates):
             x = getattr(self, f"up_{i}")(_lrelu(x))
             tgt = mel.shape[1] * int(np.prod(self.rates[: i + 1]))
             if x.shape[1] != tgt:
                 x = x[:, :tgt] if x.shape[1] > tgt else F.pad(
                     x, (0, 0, 0, tgt - x.shape[1]))
-            x = x + getattr(self, f"noise_conv_{i}")(har)[:, : x.shape[1]]
+            if har is not None:
+                x = x + getattr(self, f"noise_conv_{i}")(har)[:, : x.shape[1]]
             x = self._mrf(i, x)
         x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x)[..., 0]
+        return torch.tanh(x.float())[..., 0]

@@ -3,11 +3,20 @@
 
 FS2 phoneme encoder + note encoder -> spk/emo projection -> durations ->
 static-length ``mel2ph`` -> UMLN (identity at inference) -> residual style
-adaptor (WN + ConvBlocks + RQ + prosody aligner) -> dual joint f0 + uv
-diffusion with the MIDI +-3 semitone clip -> FFT decoder -> shallow mel
-diffusion.  Options the flagship does not use (strided F0 sampler, PLMS or
-DPM++ mel samplers, ProDiff, conv pitch predictors, speaker ids) are not
-ported and raise.
+adaptor (WN + ConvBlocks + RQ + prosody aligner) -> pitch -> decoder.
+
+- pitch (``f0_gen``): ``gmdiff``, the dual joint f0 + uv diffusion with the
+  MIDI +-3 semitone clip (ancestral, or strided with ``f0_speedup`` > 1),
+  or ``conv``, the two conv pitch predictors;
+- decoder: ``diffsinger``, the FFT decoder and a shallow mel diffusion
+  (ancestral, PLMS with ``pndm_speedup`` > 1, or DPM-Solver++(2M) with
+  ``dpm_steps`` > 0, which takes precedence) on the WaveNet or the FFT
+  denoiser (``diff_decoder_type``); ``fft``, the FFT decoder alone; or
+  ``prodiff``, x0-parameterized diffusion from noise in place of the FFT
+  decoder.
+
+``use_spk_id``, ``rel_pos`` and a ``pitch_type`` other than ``frame`` are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -23,9 +32,9 @@ from stylesinger_torch.dsp.pitch import denorm_f0, f0_to_coarse
 from stylesinger_torch.models import diffusion as diff
 from stylesinger_torch.models.common import (
     DurationPredictor, Embedding, FastspeechDecoder, FastspeechEncoder,
-    SinusoidalPositionalEmbedding,
+    PitchPredictor, SinusoidalPositionalEmbedding,
 )
-from stylesinger_torch.models.diffnet import DDiffNet, DiffNet
+from stylesinger_torch.models.diffnet import DDiffNet, DiffNet, FFTDenoiser
 from stylesinger_torch.models.fs2 import expand_states, predict_mel2ph
 from stylesinger_torch.models.style import LocalStyleAdaptor, ProsodyAligner
 from stylesinger_torch.models.umln import UMLN
@@ -70,16 +79,13 @@ class NoteEncoder(nn.Module):
 
 def _check_supported(c: Any) -> None:
     unsupported = {
-        "f0_gen": c["f0_gen"] != "gmdiff",
-        "decoder": c["decoder"] != "diffsinger",
+        "f0_gen": c["f0_gen"] not in ("gmdiff", "conv"),
+        "decoder": c["decoder"] not in ("diffsinger", "fft", "prodiff"),
         "diff_decoder_type": c.get("diff_decoder_type", "wavenet")
-        != "wavenet",
+        not in ("wavenet", "fft"),
         "use_spk_id": bool(c.get("use_spk_id", False)),
         "rel_pos": bool(c.get("rel_pos", False)),
         "pitch_type": c["pitch_type"] != "frame",
-        "pndm_speedup": int(c.get("pndm_speedup", 1) or 1) > 1,
-        "dpm_steps": int(c.get("dpm_steps", 0) or 0) > 0,
-        "f0_speedup": int(c.get("f0_speedup", 1)) > 1,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -120,26 +126,48 @@ class StyleSinger(nn.Module):
             h, ph, n_layers=c["dur_predictor_layers"],
             kernel_size=c["dur_predictor_kernel"])
         self.pitch_embed = Embedding(300, h, padding_idx=0)
-        for name in ("gm_diffnet", "gm_diffnet_inpainte"):
-            setattr(self, name, DDiffNet(
-                in_dims=1, num_classes=2, cond_dim=h,
-                residual_layers=c["f0_residual_layers"],
-                residual_channels=c["f0_residual_channels"],
-                dilation_cycle_length=c["f0_dilation_cycle_length"]))
-        self.f0_sched = diff.make_schedule(c["f0_timesteps"],
-                                           c["f0_max_beta"], "linear")
-        self.decoder = FastspeechDecoder(h, c["dec_layers"],
-                                         c["dec_ffn_kernel_size"],
-                                         num_heads=c["num_heads"])
-        self.mel_out = nn.Linear(h, m)
-        self.postdiff = DiffNet(
-            in_dims=m, cond_dim=h, residual_layers=c["residual_layers"],
-            residual_channels=c["residual_channels"],
-            dilation_cycle_length=c["dilation_cycle_length"])
-        self.mel_sched = diff.make_schedule(c["timesteps"], c["max_beta"],
-                                            c["schedule_type"])
-        n_cond = m + h + h + (h if c["emo"] else 0) + (h if c["style"] else 0)
-        self.ln_proj = nn.Linear(n_cond, h)
+        if c["f0_gen"] == "gmdiff":
+            for name in ("gm_diffnet", "gm_diffnet_inpainte"):
+                setattr(self, name, DDiffNet(
+                    in_dims=1, num_classes=2, cond_dim=h,
+                    residual_layers=c["f0_residual_layers"],
+                    residual_channels=c["f0_residual_channels"],
+                    dilation_cycle_length=c["f0_dilation_cycle_length"]))
+            self.f0_sched = diff.make_schedule(c["f0_timesteps"],
+                                               c["f0_max_beta"], "linear")
+        else:
+            for name in ("pitch_predictor", "pitch_inpainter_predictor"):
+                setattr(self, name, PitchPredictor(
+                    h, ph, odim=2, n_layers=5,
+                    kernel_size=c["predictor_kernel"]))
+        if c["decoder"] != "prodiff":  # ProDiff replaces the FFT decoder
+            self.decoder = FastspeechDecoder(h, c["dec_layers"],
+                                             c["dec_ffn_kernel_size"],
+                                             num_heads=c["num_heads"])
+            self.mel_out = nn.Linear(h, m)
+        if c["decoder"] in ("diffsinger", "prodiff"):
+            if c.get("diff_decoder_type", "wavenet") == "fft":
+                self.postdiff = FFTDenoiser(
+                    in_dims=m, hidden_size=h,
+                    residual_channels=c["residual_channels"],
+                    num_layers=c["dec_layers"],
+                    kernel_size=c["dec_ffn_kernel_size"],
+                    num_heads=c["num_heads"])
+            else:
+                self.postdiff = DiffNet(
+                    in_dims=m, cond_dim=h,
+                    residual_layers=c["residual_layers"],
+                    residual_channels=c["residual_channels"],
+                    dilation_cycle_length=c["dilation_cycle_length"])
+        if c["decoder"] == "diffsinger":
+            self.mel_sched = diff.make_schedule(
+                c["timesteps"], c["max_beta"], c["schedule_type"])
+            n_cond = (m + (h if c["use_txt_cond"] else 0) + h +
+                      (h if c["emo"] else 0) + (h if c["style"] else 0))
+            self.ln_proj = nn.Linear(n_cond, h)
+        elif c["decoder"] == "prodiff":
+            self.mel_sched = diff.make_prodiff_schedule(
+                c["timesteps"], c.get("prodiff_schedule", "vpsde"))
         kb = c["keep_bins"]
         for name in ("spec_min", "spec_max"):
             self.register_buffer(name, torch.as_tensor(
@@ -158,9 +186,29 @@ class StyleSinger(nn.Module):
     # ------------------------------------------------------------- pitch
     def inpaint_pitch(self, inp_agnostic, inp_specific, mel2ph, midi_notes,
                       noise, ret: Dict):
-        """Dual joint f0 + uv diffusion, averaged; rests forced unvoiced."""
+        """The two pitch paths (agnostic, specific), averaged."""
         c = self.cfg
         nonpadding = (mel2ph > 0).to(torch.float32)
+        if c["f0_gen"] == "gmdiff":
+            p_agn, p_spec = self._gmdiff_pitch(
+                inp_agnostic, inp_specific, nonpadding, midi_notes, noise)
+        else:
+            p_agn = self.pitch_predictor(inp_agnostic, nonpadding)
+            p_spec = self.pitch_inpainter_predictor(inp_specific, nonpadding)
+        pitch_pred = p_spec / 2 + p_agn / 2
+        ret["pitch_pred"] = pitch_pred
+        uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
+        f0_denorm = denorm_f0(pitch_pred[:, :, 0], uv if c["use_uv"] else None,
+                              pitch_norm=c["pitch_norm"],
+                              f0_mean=c["f0_mean"], f0_std=c["f0_std"],
+                              pitch_padding=mel2ph == 0)
+        ret["f0_denorm"] = f0_denorm
+        return self.pitch_embed(f0_to_coarse(f0_denorm))
+
+    def _gmdiff_pitch(self, inp_agnostic, inp_specific, nonpadding,
+                      midi_notes, noise):
+        """Dual joint f0 + uv diffusion (strided with ``f0_speedup`` > 1);
+        rests forced unvoiced.  Returns the two [B, T, 2] predictions."""
         lo = (midi_notes - 3.0 - 69.0) / 12.0 + math.log2(440.0)
         hi = (midi_notes + 3.0 - 69.0) / 12.0 + math.log2(440.0)
         lo = torch.clamp(minmax_norm_lf0(lo), -1.0, 1.0)[..., None]
@@ -175,7 +223,8 @@ class StyleSinger(nn.Module):
 
         (fa, ua), (fb, ub) = diff.sample_gm_dual(
             fn_a, fn_b, self.f0_sched, inp_agnostic.shape[1],
-            inp_agnostic.shape[0], noise, dyn_clip=(lo, hi))
+            inp_agnostic.shape[0], noise, dyn_clip=(lo, hi),
+            speedup=int(self.cfg.get("f0_speedup", 1)))
         rest = (midi_notes == 0)[..., None]
         preds = []
         for f, u in ((fa, ua), (fb, ub)):
@@ -183,16 +232,7 @@ class StyleSinger(nn.Module):
             forced = torch.cat([p[..., :1], torch.ones_like(p[..., 1:])],
                                dim=-1)
             preds.append(torch.where(rest, forced, p))
-        p_agn, p_spec = preds
-        pitch_pred = p_spec / 2 + p_agn / 2
-        ret["pitch_pred"] = pitch_pred
-        uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
-        f0_denorm = denorm_f0(pitch_pred[:, :, 0], uv if c["use_uv"] else None,
-                              pitch_norm=c["pitch_norm"],
-                              f0_mean=c["f0_mean"], f0_std=c["f0_std"],
-                              pitch_padding=mel2ph == 0)
-        ret["f0_denorm"] = f0_denorm
-        return self.pitch_embed(f0_to_coarse(f0_denorm))
+        return preds
 
     # ----------------------------------------------------------- forward
     @torch.no_grad()
@@ -237,20 +277,54 @@ class StyleSinger(nn.Module):
         if c["style"]:
             decoder_inp = decoder_inp + style
         decoder_inp = decoder_inp * tgt3
+        if c["decoder"] == "prodiff":
+            ret["mel_out"] = self.run_prodiff(decoder_inp, noise) * tgt3
+            return ret
         coarse = self.mel_out(self.decoder(decoder_inp, tgt)) * tgt3
-
-        # shallow diffusion post-net
-        b, t = coarse.shape[:2]
-        feats = [coarse, decoder_inp, spk.expand(b, t, -1)]
-        if c["emo"]:
-            feats.append(emo.expand(b, t, -1))
-        if c["style"]:
-            feats.append(style)
-        cond = self.ln_proj(torch.cat(feats, dim=-1))
-        x = diff.sample_shallow(
-            lambda x_t, t_: self.postdiff(x_t, t_, cond), self.mel_sched,
-            diff.norm_spec(coarse, self.spec_min, self.spec_max), noise,
-            c["K_step"])
-        ret["mel_out"] = diff.denorm_spec(x, self.spec_min,
-                                          self.spec_max) * tgt3
+        ret["mel_out"] = coarse
+        if c["decoder"] == "diffsinger":
+            b, t = coarse.shape[:2]
+            feats = [coarse] + ([decoder_inp] if c["use_txt_cond"] else [])
+            feats.append(spk.expand(b, t, -1))
+            if c["emo"]:
+                feats.append(emo.expand(b, t, -1))
+            if c["style"]:
+                feats.append(style)
+            cond = self.ln_proj(torch.cat(feats, dim=-1))
+            ret["mel_out"] = self.run_diffsinger(coarse, cond, noise) * tgt3
         return ret
+
+    def run_diffsinger(self, coarse, cond, noise):
+        """Shallow mel diffusion from the coarse mel: DPM-Solver++(2M) when
+        ``dpm_steps`` > 0, else PLMS when ``pndm_speedup`` > 1, else the
+        ancestral chain."""
+        c = self.cfg
+
+        def denoise_fn(x_t, t_):
+            return self.postdiff(x_t, t_, cond)
+
+        coarse_norm = diff.norm_spec(coarse, self.spec_min, self.spec_max)
+        speedup = int(c.get("pndm_speedup", 1) or 1)
+        dpm_steps = int(c.get("dpm_steps", 0) or 0)
+        if dpm_steps > 0:
+            x = diff.sample_shallow_dpmpp(denoise_fn, self.mel_sched,
+                                          coarse_norm, noise, c["K_step"],
+                                          dpm_steps)
+        elif speedup > 1:
+            x = diff.sample_shallow_plms(denoise_fn, self.mel_sched,
+                                         coarse_norm, noise, c["K_step"],
+                                         speedup)
+        else:
+            x = diff.sample_shallow(denoise_fn, self.mel_sched, coarse_norm,
+                                    noise, c["K_step"])
+        return diff.denorm_spec(x, self.spec_min, self.spec_max)
+
+    def run_prodiff(self, decoder_inp, noise):
+        """ProDiff in place of the FFT decoder: x0-parameterized diffusion
+        from noise, conditioned on ``decoder_inp``."""
+        c = self.cfg
+        shape = (decoder_inp.shape[0], decoder_inp.shape[1],
+                 c["audio_num_mel_bins"])
+        return diff.sample_prodiff(
+            lambda x_t, t_: self.postdiff(x_t, t_, decoder_inp),
+            self.mel_sched, c["timesteps"], shape, noise)

@@ -1,0 +1,104 @@
+"""Vocoder inference wrapper (port of ``HifiGAN_NSF`` in
+``stylesinger_tpu/vocoder_infer.py``).
+
+``HifiGAN_NSF`` turns a mel [T, M] (+ f0 [T]) into a waveform with the NSF
+HiFi-GAN generator, in one call (:meth:`HifiGAN_NSF.spec2wav`) or in
+crossfaded chunks of one shape (:meth:`HifiGAN_NSF.spec2wav_streaming`),
+and applies the spectral-subtraction denoiser when ``vocoder_denoise_c``
+> 0.  Checkpoint loading waits for the checkpoint slice: a set
+``vocoder_ckpt`` raises.  The PWG, MelGAN and Griffin-Lim wrappers are not
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+
+from stylesinger_torch.dsp.denoise import denoise
+from stylesinger_torch.inference import init_random_, resolve_device
+from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.models.hifigan import HifiGanGenerator
+
+class HifiGAN_NSF:
+    """mel [T, M] + f0 [T] -> wav [T * hop] with the NSF HiFi-GAN generator.
+
+    ``model``: a generator with its weights; by default one with seeded
+    random weights (``seed``; the JAX wrapper's flax init is random too when
+    no checkpoint is set).  Runs on ``device`` (``cuda`` unless the caller
+    asks for the CPU; raises when CUDA is absent).  Each call draws the
+    generator's noise from a fresh ``Noise(seed)`` unless ``noise`` is
+    given, as the JAX wrapper reuses one key for every call."""
+
+    def __init__(self, cfg: Any, model: Optional[HifiGanGenerator] = None,
+                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+        if cfg.get("vocoder_ckpt", ""):
+            raise NotImplementedError("vocoder_ckpt: checkpoint loading is "
+                                      "not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+        if model is None:
+            model = HifiGanGenerator(cfg)
+            init_random_(model, torch.Generator().manual_seed(seed),
+                         conv_std=0.01)
+        self.model = model.to(self.device).eval()
+
+    def _noise(self, noise):
+        return noise if noise is not None else Noise(self.seed, self.device)
+
+    def _run(self, mel: np.ndarray, f0: np.ndarray, noise) -> torch.Tensor:
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)[None]
+        return self.model(t(mel), t(f0), self._noise(noise))[0]
+
+    @torch.no_grad()
+    def spec2wav(self, mel: np.ndarray, f0: Optional[np.ndarray] = None,
+                 noise=None) -> np.ndarray:
+        c = self.cfg
+        if f0 is None:
+            f0 = np.zeros(mel.shape[0], np.float32)
+        wav = self._run(mel, np.asarray(f0)[: mel.shape[0]], noise)
+        if c.get("vocoder_denoise_c", 0.0) > 0:
+            wav = denoise(wav, c["vocoder_denoise_c"], n_fft=c["fft_size"],
+                          hop_size=c["hop_size"], win_length=c["win_size"])
+        return wav.cpu().numpy()
+
+    @torch.no_grad()
+    def spec2wav_streaming(self, mel: np.ndarray,
+                           f0: Optional[np.ndarray] = None,
+                           chunk_frames: int = 256, overlap_frames: int = 16,
+                           noise=None) -> np.ndarray:
+        """Chunks of ``chunk_frames`` frames that overlap by
+        ``2 * overlap_frames``, crossfaded with linear ramps: every chunk
+        has one shape whatever the length.  A mel of at most one chunk is
+        :meth:`spec2wav`.  With ``noise`` given, the chunks draw from it in
+        turn; by default each chunk draws from a fresh ``Noise(seed)``."""
+        hop = self.cfg["hop_size"]
+        t = mel.shape[0]
+        if f0 is None:
+            f0 = np.zeros(t, np.float32)
+        if t <= chunk_frames:
+            return self.spec2wav(mel, f0=f0, noise=noise)
+        step = chunk_frames - 2 * overlap_frames
+        out = np.zeros(t * hop, np.float32)
+        weight = np.zeros(t * hop, np.float32)
+        fade = np.ones(chunk_frames * hop, np.float32)
+        ramp = np.linspace(0.0, 1.0, overlap_frames * hop, dtype=np.float32)
+        fade[: overlap_frames * hop] = ramp
+        fade[-overlap_frames * hop:] = ramp[::-1]
+        pos = 0
+        while pos < t:
+            s = min(pos, t - chunk_frames)
+            wav_c = self._run(mel[s: s + chunk_frames],
+                              f0[s: s + chunk_frames], noise).cpu().numpy()
+            o = s * hop
+            out[o: o + len(wav_c)] += wav_c * fade[: len(wav_c)]
+            weight[o: o + len(wav_c)] += fade[: len(wav_c)]
+            if s + chunk_frames >= t:
+                break
+            pos = s + step
+        return out / np.maximum(weight, 1e-8)

@@ -1,0 +1,50 @@
+"""The port's configuration against the JAX package's: its defaults and
+the repo's recipe, on every key the port reads."""
+
+import json
+
+import pytest
+
+from stylesinger_tpu.config import load_config as jax_load_config
+
+from stylesinger_torch.config import (
+    DEFAULTS, RECIPES, load_config, parse_hparams,
+)
+
+
+def _norm(value):
+    """Tuples and lists alike."""
+    return json.loads(json.dumps(value))
+
+
+@pytest.mark.parametrize("recipe", [None] + sorted(RECIPES))
+def test_recipe_matches_jax_yaml_on_every_key_the_port_reads(recipe):
+    jax_cfg = jax_load_config(None if recipe is None
+                              else f"egs/{recipe}.yaml")
+    cfg = load_config(recipe=recipe)
+    assert set(DEFAULTS) <= set(jax_cfg)
+    differ = {k: (cfg[k], jax_cfg[k]) for k in DEFAULTS
+              if _norm(cfg[k]) != _norm(jax_cfg[k])}
+    assert not differ
+
+
+def test_recipe_is_the_bf16_vocoder_and_overrides_win():
+    assert load_config()["vocoder_compute_dtype"] == "float32"
+    assert load_config(recipe="stylesinger")["vocoder_compute_dtype"] == \
+        "bfloat16"
+    cfg = load_config(recipe="stylesinger", f0_speedup=5, dpm_steps=10)
+    assert (cfg["f0_speedup"], cfg["dpm_steps"]) == (5, 10)
+    with pytest.raises(KeyError, match="unknown recipe"):
+        load_config(recipe="nope")
+
+
+def test_hparams_parse_as_the_jax_cli_does():
+    assert parse_hparams("f0_speedup=5,dpm_steps=10,mrf_block=0") == dict(
+        f0_speedup=5, dpm_steps=10, mrf_block=0)
+    assert parse_hparams("upsample_rates=[4, 4, 2, 2],use_nsf=false,"
+                         "vocoder_compute_dtype=bfloat16") == dict(
+        upsample_rates=[4, 4, 2, 2], use_nsf=False,
+        vocoder_compute_dtype="bfloat16")
+    assert parse_hparams("") == {}
+    with pytest.raises(ValueError, match="nested"):
+        parse_hparams("mesh_shape.data=2")

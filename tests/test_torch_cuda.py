@@ -13,9 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from stylesinger_torch.config import tiny_test_config
+from stylesinger_torch.inference import init_random_
 from stylesinger_torch.kernels import mel as melk
 from stylesinger_torch.kernels import mrf as mrfk
-from stylesinger_torch.models.hifigan import ResBlock1, _blockify
+from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.models.hifigan import (
+    HifiGanGenerator, ResBlock1, _blockify,
+)
 
 MEL_CASES = {
     "48k": (48000, dict()),
@@ -24,6 +29,13 @@ MEL_CASES = {
     "48k_ragged": (48256, dict()),
     "24k": (2048, dict(sample_rate=24000, n_fft=512, hop_size=128,
                        win_length=512, n_mels=40, fmax=12000.0)),
+    # not a power of two: the direct DFT branch, one pass of bins
+    "nfft1000": (48000, dict(n_fft=1000, win_length=1000, hop_size=250)),
+    # ... and three passes of bins (1501 > 2 x 256 per pass)
+    "nfft3000": (24000, dict(n_fft=3000, win_length=2400, hop_size=300)),
+    # FFTs past the static 48 KB of shared memory, up to the 4096 limit
+    "nfft2048": (48000, dict(n_fft=2048, win_length=2048, hop_size=512)),
+    "nfft4096": (48000, dict(n_fft=4096, win_length=4096, hop_size=1024)),
 }
 MRF_CASES = {  # C, block, T, kernels, dilations
     "C16": (16, 64, 150, (3, 7, 11), ((1, 3, 5),) * 3),
@@ -55,7 +67,8 @@ def test_mel_kernel_matches_twin(cuda, case):
     x = torch.as_tensor(np.random.default_rng(11).standard_normal(n)
                         .astype(np.float32) * 0.3, device=cuda)
     consts = melk._constants(kw.get("sample_rate", 48000),
-                             kw.get("n_fft", 1024), kw.get("win_length", 1024),
+                             kw.get("n_fft", 1024),
+                             kw.get("win_length", 1024),
                              kw.get("n_mels", 80), 20.0,
                              float(kw.get("fmax", 24000.0)), cuda)
     before = melk.counter.count
@@ -91,3 +104,77 @@ def test_mrf_kernel_matches_twin(cuda, case):
     # the kernel sums in another order than cuDNN: 1e-4 of max|y|
     err = (out - ref).abs().max().item() / ref.abs().max().item()
     assert out.shape == ref.shape and err <= 1e-4, err
+
+
+def _ulp_bf16(v: float) -> float:
+    """The spacing of bf16 values at v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+BF16_CASES = ("C10", "C64", "C128", "flagship")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_mrf_bf16_kernel_matches_bf16_twin(cuda, case):
+    """The bf16 mode against its twin, both rounding to bf16 at the same
+    points: they differ only where an f32 sum in another order lands on
+    the other side of a bf16 rounding, within 2 bf16 ulps of max|y|."""
+    c, block, t, rk, rd = MRF_CASES[case]
+    halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((2, t, c), generator=gen, device=cuda)
+    xb, mask, _ = _blockify(x.to(torch.bfloat16), block, halo)
+    weights = [[tuple((torch.randn((k, c, c), generator=gen, device=cuda)
+                       / math.sqrt(k * c),
+                       0.1 * torch.randn((c,), generator=gen, device=cuda))
+                      for _ in range(2)) for _ in ds]
+               for k, ds in zip(rk, rd)]
+    kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
+    before = mrfk.counter_bf16.count
+    out = mrfk.fused_mrf_blocks(xb, mask, weights,
+                                compute_dtype=torch.bfloat16, **kw)
+    ref = mrfk.mrf_blocks_plain_bf16(xb, mask, weights, **kw)
+    torch.cuda.synchronize()
+    assert mrfk.counter_bf16.count == before + sum(len(d) for d in rd)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 * _ulp_bf16(ref.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generator_past_the_kernels_reach_matches_cpu(cuda, dtype):
+    """A resblock with k = 11, d = 7 (reach 70 > 64) routes its stages to
+    the resblock modules; the card's wav matches the CPU's."""
+    cfg = tiny_test_config(mrf_block=64, resblock_kernel_sizes=(3, 11),
+                           resblock_dilation_sizes=((1, 3), (1, 7)),
+                           vocoder_compute_dtype=dtype)
+    cpu = HifiGanGenerator(cfg)
+    init_random_(cpu, torch.Generator().manual_seed(0), conv_std=0.05)
+    gpu = HifiGanGenerator(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(cuda)
+    assert set(cpu.mrf_routes(40)) == {"blocks"}
+    mel = torch.randn((1, 40, cfg["audio_num_mel_bins"]),
+                      generator=torch.Generator().manual_seed(1))
+    f0 = torch.full((1, 40), 220.0)
+    before = (mrfk.counter.count, mrfk.counter_bf16.count)
+    ref = cpu(mel, f0, Noise(2, "cpu"))
+    out = gpu(mel.to(cuda), f0.to(cuda), _CpuDraws(Noise(2, "cpu"), cuda))
+    assert (mrfk.counter.count, mrfk.counter_bf16.count) == before
+    tol = 1e-5 if dtype == "float32" else 2e-2 * ref.abs().max().item()
+    assert (out.cpu() - ref).abs().max().item() <= tol
+
+
+class _CpuDraws:
+    """Draws from a CPU noise source, handed over on the card."""
+
+    def __init__(self, noise, device):
+        self.noise, self.device = noise, device
+
+    def normal(self, shape):
+        return self.noise.normal(shape).to(self.device)
+
+    def uniform(self, shape):
+        return self.noise.uniform(shape).to(self.device)

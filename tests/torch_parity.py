@@ -4,9 +4,10 @@
   by tracing its init (``jax.eval_shape``, no compile), as the JAX
   package's training-path init would create them.
 - :func:`stash_draws`, :func:`sampler_keys`, :func:`gm_dual_draws`,
-  :func:`shallow_draws`: collect the normal/uniform draws a JAX function
-  makes, in order: directly where they are made outside ``lax.scan``, and
-  by replaying the samplers' key splits for the draws inside their scans.
+  :func:`shallow_draws`, :func:`prodiff_draws`: collect the normal/uniform
+  draws a JAX function makes, in order: directly where they are made
+  outside ``lax.scan``, and by replaying the samplers' key splits for the
+  draws inside their scans.
 - :class:`Replay`: hands those draws to the port in the same order, so
   both sides see the same noise.
 """
@@ -100,11 +101,30 @@ def _gm_dual_values(rng, steps, batch, length, num_classes):
     return out
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _gm_dual_strided_values(rng, n_steps, batch, length, num_classes):
+    rng, ra, rb, rua, rub = jax.random.split(rng, 5)
+    f0_shape, uv_shape = (batch, length, 1), (batch, num_classes, length)
+    out = [jax.random.normal(ra, f0_shape), jax.random.normal(rb, f0_shape),
+           jax.random.uniform(rua, uv_shape),
+           jax.random.uniform(rub, uv_shape)]
+    for rng_i in jax.random.split(rng, n_steps):
+        out += [jax.random.uniform(r, uv_shape)
+                for r in jax.random.split(rng_i)]
+    return out
+
+
 def gm_dual_draws(rng, steps: int, batch: int, length: int,
-                  num_classes: int = 2):
-    """The draws of ``diffusion.sample_gm_dual(rng)`` (un-strided), in
+                  num_classes: int = 2, speedup: int = 1):
+    """The draws of ``diffusion.sample_gm_dual(rng, speedup=speedup)``, in
     order, replayed from its key splits: normal z_a, z_b, uniform u_a, u_b,
-    then per step and chain (a, b) a normal and a uniform."""
+    then per step and chain (a, b) a normal and a uniform (ancestral) or
+    a uniform alone (strided, ``speedup`` > 1)."""
+    if speedup > 1:
+        n = len(range(steps - 1, -1, -speedup))
+        kinds = ["n", "n", "u", "u"] + ["u"] * (2 * n)
+        return list(zip(kinds, _gm_dual_strided_values(
+            rng, n, batch, length, num_classes)))
     kinds = ["n", "n", "u", "u"] + ["n", "u"] * (2 * steps)
     return list(zip(kinds, _gm_dual_values(rng, steps, batch, length,
                                            num_classes)))
@@ -117,31 +137,62 @@ def _shallow_values(rng, k_step, shape):
         jax.random.normal(r, shape) for r in jax.random.split(rng, k_step)]
 
 
-def shallow_draws(rng, k_step: int, shape):
-    """The draws of ``diffusion.sample_shallow(rng)``, in order."""
-    return [("n", v) for v in _shallow_values(rng, k_step, tuple(shape))]
+def shallow_draws(rng, k_step: int, shape, ancestral: bool = True):
+    """The draws of ``diffusion.sample_shallow(rng)``, in order; with
+    ``ancestral=False`` those of ``sample_shallow_plms`` and
+    ``sample_shallow_dpmpp``, which draw only the q-sample's normal."""
+    values = _shallow_values(rng, k_step, tuple(shape))
+    return [("n", v) for v in (values if ancestral else values[:1])]
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _prodiff_values(rng, timesteps, shape):
+    rng, rng0 = jax.random.split(rng)
+    return [jax.random.normal(rng0, shape)] + [
+        jax.random.normal(r, shape)
+        for r in jax.random.split(rng, timesteps)]
+
+
+def prodiff_draws(rng, timesteps: int, shape):
+    """The draws of ``diffusion.sample_prodiff(rng)``: normal x_T, then one
+    normal per step (t = 0 included), in order."""
+    return [("n", v) for v in _prodiff_values(rng, timesteps, tuple(shape))]
+
+
+_SAMPLERS = {"gm": ("sample_gm_dual",), "sh": (
+    "sample_shallow", "sample_shallow_plms", "sample_shallow_dpmpp"),
+    "pd": ("sample_prodiff",)}
 
 
 @contextlib.contextmanager
 def sampler_keys(keys: dict):
-    """Capture the keys the StyleSinger model hands its two samplers."""
+    """Capture the keys the StyleSinger model hands its samplers: "gm" (the
+    F0 chains), "sh" (any shallow mel sampler, with its name under
+    "sh_name") and "pd" (ProDiff)."""
     from stylesinger_tpu.models import diffusion as diff
 
-    gm, sh = diff.sample_gm_dual, diff.sample_shallow
+    saved = {name: getattr(diff, name)
+             for names in _SAMPLERS.values() for name in names}
+    rng_pos = {"sample_gm_dual": 5, "sample_prodiff": 4}
 
-    def gm_rec(fa, fb, sched, cond_t, batch, rng, *a, **k):
-        keys["gm"] = rng
-        return gm(fa, fb, sched, cond_t, batch, rng, *a, **k)
+    def recorder(slot, name):
+        fn = saved[name]
 
-    def sh_rec(fn, sched, coarse, rng, *a, **k):
-        keys["sh"] = rng
-        return sh(fn, sched, coarse, rng, *a, **k)
+        def rec(*a, **k):
+            keys[slot] = a[rng_pos.get(name, 3)]
+            if slot == "sh":
+                keys["sh_name"] = name
+            return fn(*a, **k)
+        return rec
 
-    diff.sample_gm_dual, diff.sample_shallow = gm_rec, sh_rec
+    for slot, names in _SAMPLERS.items():
+        for name in names:
+            setattr(diff, name, recorder(slot, name))
     try:
         yield keys
     finally:
-        diff.sample_gm_dual, diff.sample_shallow = gm, sh
+        for name, fn in saved.items():
+            setattr(diff, name, fn)
 
 
 class Replay:
@@ -170,3 +221,92 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1):
+    """One request through the JAX package's ``StyleSingerInfer`` (model +
+    vocoder under one ``jax.jit``) and through the port's, with the same
+    seeded weights and JAX's draws replayed into the port.  Returns a dict:
+    ``ret``/``wav`` (JAX), ``tret``/``twav`` (port), ``noise`` (the replay,
+    empty when every draw was used), ``cfg`` and ``ti``."""
+    import jax.numpy as jnp
+
+    from stylesinger_tpu.config import tiny_test_config
+    from stylesinger_tpu.inference import StyleSingerInfer as JaxInfer
+    from stylesinger_torch.config import tiny_test_config as torch_tiny
+    from stylesinger_torch.convert import from_jax_params
+    from stylesinger_torch.inference import StyleSingerInfer
+
+    cfg = tiny_test_config(**cfg_kwargs)
+    ji = JaxInfer(cfg, phone_list=phones)
+    ex = ji._example_inputs()
+    t_ref = ex["ref_mels"].shape[1]
+    keys = {k: jax.random.PRNGKey(n) for n, k in enumerate(
+        ["params", "dropout", "umln", "rq", "diffusion", "noise"])}
+    av = random_variables(
+        ji.model.init, keys, ex["txt_tokens"],
+        jnp.ones((1, t_ref), jnp.int32), ex["spk_embed"], ex["emo_embed"],
+        ex["ref_mels"], ex["ref_f0"], jnp.full((1, t_ref), 8.0),
+        jnp.zeros((1, t_ref)), ex["note"], ex["note_dur"], ex["note_type"],
+        infer=False, use_rq=True, forcing=False, use_diff=True, seed=seed)
+    # random weights give ~0-frame phones: make phones ~4 frames long
+    av["params"]["dur_predictor"]["out"]["bias"][:] = np.log(5.0)
+    vv = random_variables(
+        ji.vocoder.init, {"params": keys["params"], "noise": keys["noise"]},
+        jnp.zeros((1, 16, cfg["audio_num_mel_bins"])),
+        jnp.full((1, 16), 200.0), seed=seed + 1, gain=0.5)
+    sv = random_variables(ji.spk_encoder.init, keys["params"],
+                          jnp.zeros((1, 160, 40)), seed=seed + 2)
+    ev = random_variables(ji.emo_encoder.init, keys["params"],
+                          jnp.zeros((1, 160, 40)), seed=seed + 3)
+    ji.variables, ji.voc_variables = av, vv
+    ji.spk_variables, ji.emo_variables = sv, ev
+    jax_batch = ji.preprocess_input(request)
+    voc_kinds, names = [], {}
+
+    def fwd(variables, voc_variables, batch):
+        keys_seen, voc_draws = {}, []
+        with sampler_keys(keys_seen):
+            ret = ji.model.apply(
+                variables, batch["txt_tokens"], None, batch["spk_embed"],
+                batch["emo_embed"], batch["ref_mels"], batch["ref_f0"], None,
+                None, batch["note"], batch["note_dur"], batch["note_type"],
+                infer=True, use_diff=True, max_frames=cfg["max_frames"],
+                rngs={"diffusion": ji._rng, "rq": ji._rng})
+        with stash_draws(voc_draws):
+            wav = ji.vocoder.apply(voc_variables, ret["mel_out"],
+                                   ret["f0_denorm"], rngs={"noise": ji._rng})
+        voc_kinds[:] = [kind for kind, _ in voc_draws]
+        names["sh"] = keys_seen.pop("sh_name", None)
+        outs = {k: ret[k] for k in ("mel_out", "f0_denorm", "mel2ph",
+                                    "pitch_pred")}
+        return outs, wav, keys_seen, [value for _, value in voc_draws]
+
+    jb = {k: jnp.asarray(v) for k, v in jax_batch.items()}
+    ret, wav, keys_seen, voc_draws = jax.jit(fwd)(av, vv, jb)
+    b, t = ret["mel2ph"].shape
+    mel_shape = ret["mel_out"].shape
+    draws = []
+    if "gm" in keys_seen:
+        draws += gm_dual_draws(keys_seen["gm"], cfg["f0_timesteps"], b, t,
+                               speedup=int(cfg.get("f0_speedup", 1)))
+    if "sh" in keys_seen:
+        draws += shallow_draws(keys_seen["sh"], cfg["K_step"], mel_shape,
+                               ancestral=names["sh"] == "sample_shallow")
+    if "pd" in keys_seen:
+        draws += prodiff_draws(keys_seen["pd"], cfg["timesteps"], mel_shape)
+    draws += list(zip(voc_kinds, voc_draws))
+
+    tcfg = torch_tiny(**{k: v for k, v in cfg_kwargs.items()
+                         if k != "mrf_pallas"})
+    ti = StyleSingerInfer(tcfg, phone_list=phones, device="cpu")
+    for module, variables in ((ti.model, av), (ti.vocoder, vv),
+                              (ti.spk_encoder, sv), (ti.emo_encoder, ev)):
+        module.load_state_dict(from_jax_params(variables))
+    tb = {k: torch.as_tensor(v) for k, v in jax_batch.items()}
+    noise = Replay(draws)
+    with torch.no_grad():
+        tret = ti.model(**tb, noise=noise)
+        twav = ti.vocoder(tret["mel_out"], tret["f0_denorm"], noise)
+    return dict(cfg=cfg, ret=ret, wav=wav, tret=tret, twav=twav,
+                noise=noise, ti=ti, sampler=names["sh"])
