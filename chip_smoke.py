@@ -39,7 +39,24 @@ Phases, each printed on its own line with its elapsed seconds:
    model with a ``ResBlock2`` vocoder; a generator whose MRF reach is past
    the kernel's 64 rows; the mel kernel at n_fft 2048 and 1000; with the
    mel launches and the MRF stage routes printed;
-4. device time per call of each kernel and its twin at the shapes of
+4. training the acoustic model on the card:
+   - ``small train step``: one step of the tiny model on the card against
+     the same step on the CPU (same weights, the draws made on CPU
+     generators and replayed on the card, TF32 off): every loss and the
+     grad norm within 1e-3 (relative, atol 1e-3), each gradient leaf within
+     1e-3 * max|g_leaf| + 1e-6 * max|g|;
+   - ``train recipe``: ``Trainer.fit`` at the recipe's full width
+     (``load_config(recipe="stylesinger")``, f32) on 8 seeded synthetic
+     items of 600-1000 frames and 60-120 phones, collated into the
+     1024-frame / 128-token buckets, for 4 steps across a scaled-down
+     curriculum (``forcing=2, rq_start=1, diff_start=1``: 2 forcing steps,
+     then 2 with RQ and the mel diffusion), validation and a checkpoint at
+     step 4, then a restore that resumes at step 4 and must equal the
+     saved state exactly; it prints each step's time (host clock between
+     ``torch.cuda.synchronize()`` calls), steps/s after the first step,
+     the peak memory and one eval step's time, and it launches neither
+     kernel;
+5. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
@@ -64,6 +81,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SEED = 1234
+# train recipe: steps per curriculum phase (the first pays the phase's
+# first run)
+TRAIN_PHASE_STEPS = 6
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -594,7 +614,8 @@ def phase_device(t0, torch, timed) -> None:
 
 
 class _Replay:
-    """Hands out recorded draws in order, on a given device."""
+    """Hands out recorded draws in order, on a given device (the
+    ``models/diffusion.py::Noise`` interface)."""
 
     def __init__(self, draws, device):
         self.draws = list(draws)
@@ -611,6 +632,12 @@ class _Replay:
 
     def uniform(self, shape):
         return self._next("u", shape)
+
+    def randint(self, shape, low, high):
+        return self._next("i", shape)
+
+    def bernoulli(self, p, shape=()):
+        return self._next("b", shape)
 
 
 class _Recorder:
@@ -632,6 +659,20 @@ class _Recorder:
 
         a = torch.rand(tuple(shape), generator=self.g)
         self.draws.append(("u", a))
+        return a.clone()
+
+    def randint(self, shape, low, high):
+        import torch
+
+        a = torch.randint(low, high, tuple(shape), generator=self.g)
+        self.draws.append(("i", a))
+        return a.clone()
+
+    def bernoulli(self, p, shape=()):
+        import torch
+
+        a = torch.rand(tuple(shape), generator=self.g) < p
+        self.draws.append(("b", a))
         return a.clone()
 
 
@@ -734,6 +775,224 @@ def phase_small(t0, torch, np, wav_np):
                 f"mel kernel at n_fft {n_fft}: {err}")
 
 
+def synthetic_items(np, n, frames, phones, mel_bins, vocab, seed):
+    """Seeded training items: frames and phones drawn from the given
+    ranges, each phone a run of frames, f0 around 150-250 Hz."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        t = int(rng.integers(*frames))
+        tt = int(rng.integers(*phones))
+        mel2ph = np.sort(rng.integers(1, tt + 1, t))
+        mel2ph[:tt] = np.arange(1, tt + 1)
+        items.append({
+            "item_name": f"synthetic_{i}",
+            "mel": (rng.standard_normal((t, mel_bins)) * 0.5 - 3).astype(
+                np.float32),
+            "mel2ph": np.sort(mel2ph),
+            "f0": (150 + 100 * rng.uniform(size=t)).astype(np.float32),
+            "ph_token": rng.integers(1, vocab, tt),
+            "ep_pitches": rng.integers(40, 80, tt),
+            "ep_notedurs": rng.uniform(0.1, 0.6, tt).astype(np.float32),
+            "ep_types": np.ones(tt, np.int64),
+            "spk_embed": rng.standard_normal(256).astype(np.float32),
+            "emo_embed": rng.standard_normal(256).astype(np.float32),
+        })
+    return items
+
+
+def collated(cfg, items):
+    from stylesinger_torch.data.batching import collate_batch
+    from stylesinger_torch.data.dataset import StyleSingerDataset
+
+    ds = StyleSingerDataset(cfg, "train", items=items)
+    return collate_batch([ds[i] for i in range(len(ds))],
+                         cfg["frame_buckets"], cfg["token_buckets"])
+
+
+def phase_train_small(t0, torch, np):
+    """One train step of the tiny model, the card against the CPU."""
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cfg = tiny_test_config()
+    vocab = 20
+    batch = collated(cfg, synthetic_items(np, 4, (16, 30), (3, 7), 16, vocab,
+                                          SEED))
+    phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
+    cpu = ts.init_state(StyleSinger(cfg, vocab), cfg)
+    model = StyleSinger(cfg, vocab)
+    model.load_state_dict(cpu.model.state_dict())
+    gpu = ts.TrainState(model.cuda(), ts.Optimizer(
+        dict(model.named_parameters()), cfg))
+    recs = {s: _Recorder(SEED + i) for i, s in enumerate(ts.STREAMS)}
+    m_cpu = ts.train_step(cpu, ts.batch_to_device(batch, "cpu"), phase, cfg,
+                          noise=recs)
+    m_gpu = ts.train_step(gpu, ts.batch_to_device(batch, "cuda"), phase,
+                          cfg, noise={s: _Replay(r.draws, "cuda")
+                                      for s, r in recs.items()})
+    torch.cuda.synchronize()
+    errs = {k: abs(float(m_gpu[k]) - float(v)) / max(1.0, abs(float(v)))
+            for k, v in m_cpu.items()}
+    g_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in g_cpu.values()
+                if g is not None)
+    worst, worst_name = 0.0, ""
+    for name, p in gpu.model.named_parameters():
+        ref = g_cpu[name]
+        if ref is None:
+            require(p.grad is None or not p.grad.any(),
+                    f"small train step: {name} has a gradient on the card "
+                    "only")
+            continue
+        err = float((p.grad.cpu() - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-6 * g_max
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+    buf_err = max(float((b.cpu() - cpu.model.state_dict()[k]).abs().max())
+                  for k, b in gpu.model.state_dict().items()
+                  if ".codebook_" in k)
+    say("small train step", t0, losses=len(m_cpu) - 2,
+        worst_loss_err=f"{max(errs.values()):.2e}", tol="1e-3",
+        grad_norm=f"{float(m_cpu['grad_norm']):.4f}",
+        worst_grad_err_over_tol=f"{worst:.3f}", at=worst_name,
+        rq_buffer_err=f"{buf_err:.2e}")
+    require(all(e <= 1e-3 for e in errs.values()),
+            f"small train step: losses differ {errs}")
+    require(worst <= 1.0, f"small train step: gradient {worst_name} "
+            f"differs ({worst:.2f} x its tolerance)")
+
+
+def phase_train_recipe(t0, torch, np):
+    """Trainer.fit at the recipe's full width: 12 steps, 6 in each phase of
+    the curriculum, validation, a checkpoint, and an exact restore.  Each
+    phase's first step pays for its first run; its 5 warm steps give the
+    phase's median and spread, and the last phase's warm steps the
+    steps/s."""
+    import tempfile
+
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+    from stylesinger_torch.training import trainer as tr
+
+    cfg = load_config(recipe="stylesinger", forcing=TRAIN_PHASE_STEPS,
+                      rq_start=TRAIN_PHASE_STEPS - 1,
+                      diff_start=TRAIN_PHASE_STEPS - 1, tb_log_interval=1,
+                      val_check_interval=2 * TRAIN_PHASE_STEPS,
+                      num_ckpt_keep=1)
+    n_steps = 2 * TRAIN_PHASE_STEPS
+    vocab = 64
+    batch = collated(cfg, synthetic_items(
+        np, 8, (600, 1001), (60, 121), cfg["audio_num_mel_bins"], vocab,
+        SEED))
+    require(batch["mels"].shape == (8, 1024, 80) and
+            batch["txt_tokens"].shape == (8, 128),
+            f"train recipe: buckets {batch['mels'].shape}")
+    require(8 * batch["mels"].shape[1] <= cfg["max_tokens"],
+            "train recipe: the batch exceeds max_tokens")
+    steps, first = [], {}
+    train_step = tr.train_step
+
+    def timed_step(state, b, phase, c):
+        if not first:
+            first.update({k: v.detach().clone() for k, v in
+                          state.model.state_dict().items()})
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        m = train_step(state, b, phase, c)
+        torch.cuda.synchronize()
+        steps.append((phase, time.perf_counter() - tb, m))
+        return m
+
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step = timed_step
+    work = tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO))
+    try:
+        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, work.name)
+        state = trainer.fit([batch], lambda: [batch], max_updates=n_steps)
+        tr.train_step = train_step
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.count for k, c in counters().items()}
+        b_dev = ts.batch_to_device(batch, "cuda")
+        last = ts.phase_for_step(n_steps - 1, cfg)
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        ev = ts.eval_step(state, b_dev, last, cfg)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - te
+        again = tr.Trainer(StyleSinger(cfg, vocab), cfg, work.name)
+        restored = again.init_state()
+        saved = state.model.state_dict()
+        same = all(torch.equal(v, saved[k]) for k, v in
+                   restored.model.state_dict().items())
+        opt_a, opt_b = state.opt.state_dict(), restored.opt.state_dict()
+        same_opt = opt_a["count"] == opt_b["count"] and all(
+            torch.equal(opt_a[key][n], opt_b[key][n])
+            for key in ("mu", "nu") for n in opt_a[key])
+        ckpt_steps = trainer.ckpt.all_steps()
+    finally:
+        tr.train_step = train_step
+        work.cleanup()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    for i, (phase, sec, m) in enumerate(steps):
+        say(f"train recipe step {i}", t0, flags="/".join(
+            k for k, v in phase._asdict().items() if v) or "none",
+            ms=f"{1e3 * sec:.1f}", total_loss=f"{float(m['total_loss']):.4f}",
+            grad_norm=f"{float(m['grad_norm']):.4f}", losses=len(m) - 2)
+    by_phase = {}
+    for phase, sec, _ in steps:
+        by_phase.setdefault(phase, []).append(1e3 * sec)
+    per_phase = {}
+    for ph, ms in by_phase.items():
+        name = "_".join(k for k, v in ph._asdict().items() if v)
+        warm = sorted(ms[1:])
+        per_phase[f"{name}_first_ms"] = f"{ms[0]:.1f}"
+        per_phase[f"{name}_warm_median_ms"] = f"{np.median(warm):.1f}"
+        per_phase[f"{name}_warm_min_max_ms"] = f"{warm[0]:.1f}/{warm[-1]:.1f}"
+    last_warm = by_phase[steps[-1][0]][1:]
+    moved = {k: float((v.float() - first[k].float()).abs().max())
+             for k, v in saved.items() if k in first}
+    ema_moved = max(v for k, v in moved.items()
+                    if k.endswith(("embed_ema", "cluster_size_ema")))
+    param_moved = max(moved[k] for k, _ in state.model.named_parameters())
+    say("train recipe", t0, params=n_params, batch=tuple(batch["mels"].shape),
+        tokens=tuple(batch["txt_tokens"].shape), steps=len(steps),
+        **per_phase,
+        steps_per_s_last_phase_warm=(
+            f"{1e3 * len(last_warm) / sum(last_warm):.3f}"),
+        peak_mem_gib=f"{peak / 2 ** 30:.2f}",
+        eval_ms=f"{1e3 * eval_s:.1f}",
+        eval_total_loss=f"{float(ev['total_loss']):.4f}",
+        param_moved=f"{param_moved:.3e}", ema_moved=f"{ema_moved:.3e}",
+        ckpt_steps=ckpt_steps, restored_step=restored.step,
+        restore_exact=same and same_opt, launches=launches,
+        timer="host clock, cuda.synchronize")
+    last_keys = {"diff", "gdiff1", "mdiff1", "gdiff2", "mdiff2", "gloss",
+                 "rq_loss", "l1", "ssim", "pdur", "sdur"}
+    require(len(steps) == n_steps and state.step == n_steps,
+            f"train recipe: not {n_steps} steps")
+    require([tuple(p) for p, _, _ in steps] ==
+            [(False, True, False)] * TRAIN_PHASE_STEPS +
+            [(True, False, True)] * TRAIN_PHASE_STEPS,
+            "train recipe: the curriculum did not run its two phases")
+    require(all(np.isfinite(float(v)) for _, _, m in steps
+                for v in m.values()), "train recipe: a non-finite loss")
+    require(last_keys <= set(steps[-1][2]),
+            f"train recipe: losses missing {last_keys - set(steps[-1][2])}")
+    require(param_moved > 0 and ema_moved > 0,
+            "train recipe: parameters or codebook EMA buffers did not move")
+    require(ckpt_steps == [n_steps] and restored.step == n_steps and same
+            and same_opt,
+            "train recipe: the restore does not equal the saved state")
+    require(all(v == 0 for v in launches.values()),
+            f"train recipe: a kernel launched on the training path "
+            f"{launches}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not (REPO / "stylesinger_torch" / "csrc").is_dir():
@@ -763,6 +1022,8 @@ def main() -> int:
                                                 wav_np)
         phase_streaming(t0, torch, np, infer, wav_np)
         phase_small(t0, torch, np, wav_np)
+        phase_train_small(t0, torch, np)
+        phase_train_recipe(t0, torch, np)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

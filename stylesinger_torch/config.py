@@ -1,7 +1,8 @@
 """Configuration of the port: the flagship defaults as Python.
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
-ported modules read, ``apply_spec_stats`` and ``tiny_test_config``.  No YAML
+ported modules read (model, training, data), ``apply_spec_stats`` and
+``tiny_test_config``.  No YAML
 reader is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for
 each recipe of ``egs/``, the keys the port reads where the recipe and its
 bases differ from the defaults, and ``load_config(recipe=..., **overrides)``
@@ -163,8 +164,53 @@ DEFAULTS: Dict[str, Any] = dict(
     vocoder_compute_dtype="float32",
     # > 0: spectral-subtraction denoise of the vocoder's output
     vocoder_denoise_c=0.0,
+    # --- dropout (egs/egs_bases/tts/base.yaml, fs2.yaml) ---
+    dropout=0.1,
+    predictor_dropout=0.5,
+    vae_dropout=0.0,
+    predictor_grad=1.0,
+    rq_decay=0.99,
+    # --- curriculum (egs/stylesinger.yaml:102-133) ---
+    rq_start=20500,
+    forcing=20000,
+    diff_start=100000,
+    # --- losses (egs/egs_bases/tts/fs2.yaml) ---
+    mel_loss="l1:0.5|ssim:0.5",
+    pitch_loss="l1",
+    lambda_f0=1.0,
+    lambda_uv=1.0,
+    lambda_ph_dur=0.1,
+    lambda_word_dur=0.0,
+    lambda_sent_dur=1.0,
+    # --- optimizer (egs/egs_bases/tts/base.yaml) ---
+    lr=2.0,
+    scheduler="rsqrt",
+    warmup_updates=8000,
+    optimizer_adam_beta1=0.9,
+    optimizer_adam_beta2=0.98,
+    weight_decay=0.0,
+    clip_grad_norm=1.0,
+    accumulate_grad_batches=1,
+    # --- training loop and checkpoints ---
+    max_updates=320000,
+    val_check_interval=5000,
+    tb_log_interval=100,
+    num_ckpt_keep=3,
+    save_best=True,
+    milestone_interval=0,
+    load_ckpt="",
     # --- data ---
     binary_data_dir="data/binary/style",
+    train_set_name="train",
+    valid_set_name="valid",
+    max_tokens=10000,
+    max_sentences=100000,
+    max_valid_tokens=60000,
+    max_valid_sentences=1,
+    sort_by_len=True,
+    min_frames=0,
+    max_input_tokens=2000,
+    use_spk_embed=True,
 )
 
 
@@ -282,6 +328,7 @@ def tiny_test_config(**kwargs: Any) -> Config:
         max_frames=64,
         frame_buckets=(32, 64),
         token_buckets=(8, 16),
+        warmup_updates=10,
     )
     cfg.update(kwargs)
     return cfg

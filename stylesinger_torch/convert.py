@@ -11,8 +11,9 @@ generic.  Layout rules (flax -> torch):
 - ``OptimizedLSTMCell`` ``lstm_<l>/{ii,if,ig,io,hi,hf,hg,ho}`` ->
   ``nn.LSTM`` ``weight_ih_l<l>`` / ``weight_hh_l<l>`` (gates i, f, g, o),
   the hidden-side bias as ``bias_hh_l<l>`` and a zero ``bias_ih_l<l>``.
-- the ``codebook`` collection's ``embedding`` leaves -> RQ codebook buffers
-  (the EMA statistics belong to training and are dropped).
+- the ``codebook`` collection's leaves (``embedding``, ``cluster_size_ema``,
+  ``embed_ema``) -> the RQ codebooks' buffers of the same names, as they
+  are, so that training resumes from the converted EMA statistics.
 
 The LayerNorm eps differs between flax (1e-6) and torch (1e-5); the port
 builds every LayerNorm with eps=1e-6.
@@ -75,10 +76,10 @@ def from_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``variables`` ({'params': ..., 'codebook': ...}) or a bare
     params tree, as numpy arrays -> a ``state_dict`` for ``StyleSinger``,
     ``HifiGanGenerator`` or ``UtteranceEncoder``."""
-    params = variables.get("params", variables)
+    is_collections = "params" in variables or "codebook" in variables
+    params = variables.get("params", {}) if is_collections else variables
     sd = _convert_params(params)
     for name, value in _leaves(variables.get("codebook", {})):
-        if name.endswith(".embedding"):
-            sd[name] = np.asarray(value, np.float32)
-    return {k: torch.as_tensor(np.ascontiguousarray(v))
+        sd[name] = np.asarray(value, np.float32)
+    return {k: torch.tensor(np.ascontiguousarray(v))
             for k, v in sd.items()}

@@ -5,6 +5,11 @@ carry the flax names of the JAX modules (``layer_0``, ``LayerNorm_0``,
 ``Conv_0``, ...), so ``convert.from_jax_params`` is a plain walk over the
 flax tree.  LayerNorms use flax's eps of 1e-6; GELU is the tanh
 approximation, as ``jax.nn.gelu`` is by default.
+
+Dropout sits where the JAX modules have ``nn.Dropout``.  Each ``forward``
+takes ``drop``, the step's dropout noise source (``bernoulli(p, shape)``,
+``models/diffusion.py::Noise``), or None for the deterministic pass
+(inference, validation, or training with dropout off).
 """
 
 from __future__ import annotations
@@ -26,6 +31,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def LayerNorm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+def dropout(x: torch.Tensor, rate: float, drop) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep mask ``bernoulli(1 - rate)`` drawn from
+    ``drop``, kept values divided by the keep probability; the identity when
+    ``drop`` is None or ``rate`` is 0."""
+    if drop is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(drop.bernoulli(keep, x.shape), x / keep,
+                       torch.zeros_like(x))
 
 
 class Conv(nn.Module):
@@ -153,16 +169,19 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class MultiheadCrossAttention(nn.Module):
-    """Cross-attention returning head-averaged attention weights."""
+    """Cross-attention returning head-averaged attention weights (taken
+    before the dropout on them)."""
 
-    def __init__(self, hidden: int, num_heads: int, use_bias: bool = True):
+    def __init__(self, hidden: int, num_heads: int, use_bias: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         for name in ("q", "k", "v", "out"):
             setattr(self, name, nn.Linear(hidden, hidden, bias=use_bias))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                kv_nonpadding: torch.Tensor
+                kv_nonpadding: torch.Tensor, drop=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, tq, c = q_in.shape
         tk = kv_in.shape[1]
@@ -173,7 +192,8 @@ class MultiheadCrossAttention(nn.Module):
         v = self.v(kv_in).reshape(b, tk, h, d).transpose(1, 2)
         probs = _masked_softmax(q @ k.transpose(-1, -2) / math.sqrt(d),
                                 kv_nonpadding)
-        out = (probs @ v).transpose(1, 2).reshape(b, tq, c)
+        out = (dropout(probs, self.dropout, drop) @ v)
+        out = out.transpose(1, 2).reshape(b, tq, c)
         return self.out(out), probs.mean(dim=1)
 
 
@@ -181,28 +201,30 @@ _ACTS = {"gelu": gelu, "relu": F.relu, "swish": F.silu}
 
 
 class TransformerFFN(nn.Module):
-    """conv1d(k) -> * k**-0.5 -> act -> dense."""
+    """conv1d(k) -> * k**-0.5 -> act -> dropout -> dense."""
 
     def __init__(self, hidden: int, filter_size: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.act = _ACTS[act]
+        self.dropout = dropout
         self.Conv_0 = Conv(hidden, filter_size, kernel_size)
         self.LambdaDense_0 = LambdaDense(filter_size, hidden)
 
-    def forward(self, x):
-        y = self.Conv_0(x) * self.kernel_size ** -0.5
-        return self.LambdaDense_0(self.act(y))
+    def forward(self, x, drop=None):
+        y = self.act(self.Conv_0(x) * self.kernel_size ** -0.5)
+        return self.LambdaDense_0(dropout(y, self.dropout, drop))
 
 
 class EncSALayer(nn.Module):
     """Pre-LN self-attention block + pre-LN conv-FFN block, masked."""
 
     def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         if num_heads > 0:
             self.LayerNorm_0 = LayerNorm(hidden)
             self.MultiheadSelfAttention_0 = MultiheadSelfAttention(
@@ -211,40 +233,44 @@ class EncSALayer(nn.Module):
         setattr(self, ln, LayerNorm(hidden))
         self._ffn_ln = ln
         self.TransformerFFN_0 = TransformerFFN(hidden, 4 * hidden,
-                                               kernel_size, act)
+                                               kernel_size, act, dropout)
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         mask = nonpadding[..., None]
         if self.num_heads > 0:
             y = self.MultiheadSelfAttention_0(self.LayerNorm_0(x), nonpadding)
-            x = (x + y) * mask
-        y = self.TransformerFFN_0(getattr(self, self._ffn_ln)(x))
-        return (x + y) * mask
+            x = (x + dropout(y, self.dropout, drop)) * mask
+        y = self.TransformerFFN_0(getattr(self, self._ffn_ln)(x), drop)
+        return (x + dropout(y, self.dropout, drop)) * mask
 
 
 class FFTBlocks(nn.Module):
     """Stack of EncSALayers with optional positional embedding + last LN."""
 
     def __init__(self, hidden: int, num_layers: int, kernel_size: int = 9,
-                 num_heads: int = 2, use_pos_embed: bool = True):
+                 num_heads: int = 2, use_pos_embed: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.use_pos_embed = use_pos_embed
+        self.dropout = dropout
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
             self.pos = SinusoidalPositionalEmbedding(hidden)
         for i in range(num_layers):
             setattr(self, f"layer_{i}",
-                    EncSALayer(hidden, num_heads, kernel_size))
+                    EncSALayer(hidden, num_heads, kernel_size,
+                               dropout=dropout))
         self.LayerNorm_0 = LayerNorm(hidden)
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         if self.use_pos_embed:
             x = x + self.pos_embed_alpha * self.pos(nonpadding)
+            x = dropout(x, self.dropout, drop)
         mask = nonpadding[..., None]
         x = x * mask
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, nonpadding) * mask
+            x = getattr(self, f"layer_{i}")(x, nonpadding, drop) * mask
         return self.LayerNorm_0(x) * mask
 
 
@@ -252,50 +278,53 @@ class FastspeechEncoder(nn.Module):
     """Phone embedding (* sqrt(d)) + positions + FFT stack."""
 
     def __init__(self, vocab_size: int, hidden: int, num_layers: int,
-                 kernel_size: int, num_heads: int = 2):
+                 kernel_size: int, num_heads: int = 2, dropout: float = 0.1):
         super().__init__()
         self.hidden = hidden
+        self.dropout = dropout
         self.embed_tokens = Embedding(vocab_size, hidden)
         self.pos = SinusoidalPositionalEmbedding(hidden)
         self.blocks = FFTBlocks(hidden, num_layers, kernel_size, num_heads,
-                                use_pos_embed=False)
+                                use_pos_embed=False, dropout=dropout)
 
-    def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, txt_tokens: torch.Tensor, drop=None) -> torch.Tensor:
         nonpadding = (txt_tokens > 0).to(torch.float32)
         x = self.embed_tokens(txt_tokens) * math.sqrt(self.hidden)
-        x = x + self.pos(nonpadding)
-        return self.blocks(x, nonpadding)
+        x = dropout(x + self.pos(nonpadding), self.dropout, drop)
+        return self.blocks(x, nonpadding, drop)
 
 
 class FastspeechDecoder(nn.Module):
     def __init__(self, hidden: int, num_layers: int, kernel_size: int,
-                 num_heads: int = 2):
+                 num_heads: int = 2, dropout: float = 0.1):
         super().__init__()
         self.blocks = FFTBlocks(hidden, num_layers, kernel_size, num_heads,
-                                use_pos_embed=True)
+                                use_pos_embed=True, dropout=dropout)
 
-    def forward(self, x, nonpadding):
-        return self.blocks(x, nonpadding)
+    def forward(self, x, nonpadding, drop=None):
+        return self.blocks(x, nonpadding, drop)
 
 
 class DurationPredictor(nn.Module):
-    """n x (conv k -> relu -> LN) -> dense(1); log-domain output."""
+    """n x (conv k -> relu -> LN -> dropout) -> dense(1); log-domain
+    output."""
 
     def __init__(self, c_in: int, hidden: int, n_layers: int = 2,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout: float = 0.5):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = dropout
         for i in range(n_layers):
             setattr(self, f"conv_{i}",
                     Conv(c_in if i == 0 else hidden, hidden, kernel_size))
             setattr(self, f"ln_{i}", LayerNorm(hidden))
         self.out = nn.Linear(hidden, 1)
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         mask = nonpadding[..., None]
         for i in range(self.n_layers):
-            x = F.relu(getattr(self, f"conv_{i}")(x))
-            x = getattr(self, f"ln_{i}")(x) * mask
+            x = getattr(self, f"ln_{i}")(F.relu(getattr(self, f"conv_{i}")(x)))
+            x = dropout(x, self.dropout, drop) * mask
         return (self.out(x) * mask)[..., 0]
 
     @staticmethod
@@ -305,13 +334,16 @@ class DurationPredictor(nn.Module):
 
 
 class PitchPredictor(nn.Module):
-    """(x + alpha * positions) -> n x (conv k -> relu -> LN) -> dense(odim),
-    with a learned scale ``pos_embed_alpha`` on the sinusoidal positions."""
+    """(x + alpha * positions) -> n x (conv k -> relu -> LN -> dropout) ->
+    dense(odim), with a learned scale ``pos_embed_alpha`` on the sinusoidal
+    positions."""
 
     def __init__(self, c_in: int, hidden: int, odim: int = 2,
-                 n_layers: int = 5, kernel_size: int = 5):
+                 n_layers: int = 5, kernel_size: int = 5,
+                 dropout: float = 0.1):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = dropout
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         self.pos = SinusoidalPositionalEmbedding(c_in)
         for i in range(n_layers):
@@ -320,10 +352,11 @@ class PitchPredictor(nn.Module):
             setattr(self, f"ln_{i}", LayerNorm(hidden))
         self.out = nn.Linear(hidden, odim)
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         x = x + self.pos_embed_alpha * self.pos(nonpadding)
         for i in range(self.n_layers):
             x = getattr(self, f"ln_{i}")(F.relu(getattr(self, f"conv_{i}")(x)))
+            x = dropout(x, self.dropout, drop)
         return self.out(x)
 
 
@@ -342,13 +375,15 @@ def length_regulator(dur: torch.Tensor, dur_padding: torch.Tensor,
 
 
 class ConvBlocksResidual(nn.Module):
-    """n x (LN -> conv(k, d) -> * k**-0.5 -> gelu -> conv1), residual."""
+    """n x (LN -> conv(k, d) -> * k**-0.5 -> gelu -> conv1 -> dropout),
+    residual."""
 
     def __init__(self, channels: int, kernel_size: int, dilation: int,
-                 n: int = 2, c_multiple: int = 2):
+                 n: int = 2, c_multiple: int = 2, dropout: float = 0.0):
         super().__init__()
         self.n = n
         self.kernel_size = kernel_size
+        self.dropout = dropout
         for i in range(n):
             setattr(self, f"ln_{i}", LayerNorm(channels))
             setattr(self, f"conv_a_{i}",
@@ -357,12 +392,13 @@ class ConvBlocksResidual(nn.Module):
             setattr(self, f"conv_b_{i}",
                     Conv(c_multiple * channels, channels, 1))
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         mask = nonpadding[..., None]
         for i in range(self.n):
             y = getattr(self, f"conv_a_{i}")(getattr(self, f"ln_{i}")(x))
-            y = gelu(y * self.kernel_size ** -0.5)
-            x = (x + getattr(self, f"conv_b_{i}")(y)) * mask
+            y = getattr(self, f"conv_b_{i}")(
+                gelu(y * self.kernel_size ** -0.5))
+            x = (x + dropout(y, self.dropout, drop)) * mask
         return x
 
 
@@ -371,19 +407,20 @@ class ConvBlocks(nn.Module):
 
     def __init__(self, channels: int, out_dims: int,
                  dilations: Sequence[int] = (1, 1, 1, 1, 1),
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout: float = 0.0):
         super().__init__()
         self.n = len(dilations)
         for i, d in enumerate(dilations):
             setattr(self, f"res_{i}",
-                    ConvBlocksResidual(channels, kernel_size, d))
+                    ConvBlocksResidual(channels, kernel_size, d,
+                                       dropout=dropout))
         self.last_norm = LayerNorm(channels)
         self.post = Conv(channels, out_dims, 3)
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         mask = nonpadding[..., None]
         for i in range(self.n):
-            x = getattr(self, f"res_{i}")(x, nonpadding)
+            x = getattr(self, f"res_{i}")(x, nonpadding, drop)
         x = self.last_norm(x * mask) * mask
         return self.post(x) * mask
 

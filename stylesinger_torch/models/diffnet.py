@@ -124,19 +124,21 @@ class FFTDenoiser(nn.Module):
 
     def __init__(self, in_dims: int = 80, hidden_size: int = 256,
                  residual_channels: int = 256, num_layers: int = 4,
-                 kernel_size: int = 9, num_heads: int = 2):
+                 kernel_size: int = 9, num_heads: int = 2,
+                 dropout: float = 0.1):
         super().__init__()
         dim = residual_channels
         self.input_projection = Conv(in_dims, dim, 1)
         self.mlp = DiffusionStepMLP(dim)
         self.get_decode_inp = nn.Linear(2 * dim + hidden_size, hidden_size)
         self.decoder = FastspeechDecoder(hidden_size, num_layers,
-                                         kernel_size, num_heads=num_heads)
+                                         kernel_size, num_heads=num_heads,
+                                         dropout=dropout)
         self.get_mel_out = nn.Linear(hidden_size, in_dims)
 
-    def forward(self, spec, t, cond):
+    def forward(self, spec, t, cond, drop=None):
         x = self.input_projection(spec)
         step = self.mlp(t)[:, None, :].expand(-1, x.shape[1], -1)
         h = self.get_decode_inp(torch.cat([x, cond, step], dim=-1))
         nonpadding = (cond.abs().sum(-1) > 1e-8).to(torch.float32)
-        return self.get_mel_out(self.decoder(h, nonpadding))
+        return self.get_mel_out(self.decoder(h, nonpadding, drop))

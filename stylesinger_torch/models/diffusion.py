@@ -4,10 +4,11 @@ multinomial steps, the dual joint f0 + uv sampler (ancestral, or strided
 with ``speedup > 1``), the shallow mel samplers (ancestral, PLMS and
 DPM-Solver++(2M)) and the ProDiff sampler.
 
-The samplers take their randomness from a noise source (:class:`Noise`, or
-any object with ``normal(shape)`` and ``uniform(shape)``), drawn in the
-order each docstring states.  That order is the order of the JAX
-package's draws, so a test can hand the port JAX's own numbers.
+The samplers and the training losses (:func:`gm_mixed_loss`,
+:func:`shallow_p_losses`) take their randomness from a noise source
+(:class:`Noise`, or any object with its methods), drawn in the order each
+docstring states.  That order is the order of the JAX package's draws, so
+a test can hand the port JAX's own numbers.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ _FIELDS = (
 
 
 class Noise:
-    """Standard-normal and uniform draws from a seeded ``torch.Generator``
-    on ``device``."""
+    """Standard-normal, uniform, integer and Bernoulli draws from a seeded
+    ``torch.Generator`` on ``device``."""
 
     def __init__(self, seed: int, device: Union[str, torch.device]):
         self.device = torch.device(device)
@@ -43,6 +44,17 @@ class Noise:
     def uniform(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device)
+
+    def randint(self, shape: Sequence[int], low: int,
+                high: int) -> torch.Tensor:
+        """Integers in [low, high), as ``jax.random.randint``."""
+        return torch.randint(low, high, tuple(shape), generator=self.generator,
+                             device=self.device)
+
+    def bernoulli(self, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
+        """A bool mask, True with probability ``p`` (``jax.random.bernoulli``
+        is ``uniform < p`` too)."""
+        return self.uniform(shape) < p
 
 
 def linear_beta_schedule(timesteps: int, max_beta: float) -> np.ndarray:
@@ -232,6 +244,84 @@ def log_sample_categorical(noise, logits: torch.Tensor,
     gumbel = -torch.log(-torch.log(u + 1e-30) + 1e-30)
     return index_to_log_onehot(torch.argmax(gumbel + logits, dim=1),
                                num_classes)
+
+
+def multinomial_kl(log_p1: torch.Tensor, log_p2: torch.Tensor
+                   ) -> torch.Tensor:
+    return (torch.exp(log_p1) * (log_p1 - log_p2)).sum(dim=1)
+
+
+def _masked_time_mean(x: torch.Tensor, nonpadding: torch.Tensor
+                      ) -> torch.Tensor:
+    """Per batch row: sum over time of x * mask / sum of mask."""
+    return (x * nonpadding).sum(-1) / torch.clamp_min(nonpadding.sum(-1),
+                                                      1e-8)
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+def gm_mixed_loss(denoise_fn: Callable, sched: Schedule, f0: torch.Tensor,
+                  uv: torch.Tensor, nonpadding: torch.Tensor, noise,
+                  num_classes: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The joint f0 + uv diffusion's training loss.
+
+    f0: [B, T, 1] minmax-normed; uv: [B, T] 0/1 floats; ``denoise_fn(f0_t,
+    uv_t int [B, T], t [B]) -> [B, T, 1 + K]``.  Draws: ``randint`` t,
+    ``normal`` (the f0 noise), ``uniform`` (the uv q-sample).  Returns
+    (multinomial loss, Gaussian L1 on eps over voiced frames)."""
+    b = f0.shape[0]
+    big_t = sched.num_timesteps
+    t = noise.randint((b,), 0, big_t)
+    eps = noise.normal(f0.shape)
+    f0_t = gaussian_q_sample(sched, f0, t, eps)
+    log_uv = index_to_log_onehot(uv.long(), num_classes)      # [B, K, T]
+    log_uv_t = log_sample_categorical(
+        noise, cat_q_pred(sched, log_uv, t, num_classes), num_classes)
+    out = denoise_fn(f0_t, log_onehot_to_index(log_uv_t), t)  # [B, T, 1+K]
+    eps_pred = out[..., :1]
+    uv_logits = out[..., 1:].transpose(1, 2)                  # [B, K, T]
+
+    log_true = cat_q_posterior(sched, log_uv, log_uv_t, t, num_classes)
+    log_model = cat_p_pred(sched, uv_logits, log_uv_t, t, num_classes)
+    kl = _masked_time_mean(multinomial_kl(log_true, log_model), nonpadding)
+    decoder_nll = -_masked_time_mean(
+        (torch.exp(log_uv) * log_model).sum(dim=1), nonpadding)
+    at0 = (t == 0).to(kl.dtype)
+    lt = at0 * decoder_nll + (1 - at0) * kl
+    log_qxt = cat_q_pred(sched, log_uv, torch.full_like(t, big_t - 1),
+                         num_classes)
+    kl_prior = _masked_time_mean(
+        multinomial_kl(log_qxt, torch.full_like(log_qxt,
+                                                -np.log(num_classes))),
+        nonpadding)
+    pt = torch.full_like(lt, 1.0 / big_t)
+    loss_multi = (lt / pt + kl_prior).mean()
+
+    mask = (nonpadding * (uv == 0).to(nonpadding.dtype))[..., None]
+    loss_gauss = (torch.abs(eps - eps_pred) * mask).sum() / torch.clamp_min(
+        (mask + 1e-8).sum(), 1e-8)
+    return loss_multi, loss_gauss
+
+
+def shallow_p_losses(denoise_fn: Callable, sched: Schedule,
+                     x_start: torch.Tensor, noise, K_step: int,
+                     nonpadding: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The mel diffusion's training loss: L1 between the drawn and the
+    predicted eps at a t below ``K_step``, masked to ``nonpadding`` frames.
+    Draws: ``randint`` t, then ``normal`` (the noise)."""
+    b = x_start.shape[0]
+    t = noise.randint((b,), 0, K_step)
+    eps = noise.normal(x_start.shape)
+    err = torch.abs(eps - denoise_fn(gaussian_q_sample(sched, x_start, t,
+                                                       eps), t))
+    if nonpadding is None:
+        return err.mean()
+    mask = nonpadding[..., None]
+    return (err * mask).sum() / torch.clamp_min(
+        mask.sum() * x_start.shape[-1], 1e-8)
 
 
 # ---------------------------------------------------------------------------

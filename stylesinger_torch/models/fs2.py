@@ -1,7 +1,7 @@
-"""The FastSpeech2 parts that StyleSinger's inference calls (port of
+"""The FastSpeech2 parts that StyleSinger calls (port of
 ``stylesinger_tpu/models/fs2.py`` and ``dsp/align.py::expand_states``):
-durations -> ``mel2ph`` with a static length, and the phone-to-frame
-gather.  ``grad_scale`` is the identity outside training."""
+durations -> ``mel2ph`` with a static length, the phone-to-frame gather,
+and ``grad_scale``."""
 
 from __future__ import annotations
 
@@ -9,6 +9,13 @@ import torch
 import torch.nn.functional as F
 
 from stylesinger_torch.models.common import DurationPredictor, length_regulator
+
+
+def grad_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """The value of ``x`` with its gradient scaled by ``scale``."""
+    if scale == 1.0:
+        return x
+    return x.detach() + scale * (x - x.detach())
 
 
 def expand_states(h: torch.Tensor, mel2ph: torch.Tensor) -> torch.Tensor:

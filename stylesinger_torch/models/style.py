@@ -1,6 +1,7 @@
 """Residual Style Adaptor (port of ``stylesinger_tpu/models/style.py``):
 reference-mel style encoder (WN + ConvBlocks + RQ) and the cross-attention
-prosody aligner, inference mode."""
+prosody aligner with its guided-attention loss and the hard monotonic band
+("forcing") that replaces attention early in training."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stylesinger_torch.models.common import (
-    ConvBlocks, LayerNorm, MultiheadCrossAttention, WN,
+    ConvBlocks, LayerNorm, MultiheadCrossAttention, WN, dropout,
 )
 from stylesinger_torch.models.rq import RQBottleneck
 
@@ -40,22 +41,34 @@ def monotonic_band_attention(tq: int, tk: int,
 
 
 class CrossAttenLayer(nn.Module):
-    """Post-norm cross-attention + ReLU FFN."""
+    """Post-norm cross-attention + ReLU FFN.  With ``forcing`` the band
+    matrix takes the attention's place (unnormalized, as in the
+    reference)."""
 
-    def __init__(self, hidden: int, num_heads: int = 2, ffn_dim: int = 2048):
+    def __init__(self, hidden: int, num_heads: int = 2, ffn_dim: int = 2048,
+                 dropout: float = 0.1):
         super().__init__()
-        self.mha = MultiheadCrossAttention(hidden, num_heads)
+        self.dropout = dropout
+        self.mha = MultiheadCrossAttention(hidden, num_heads,
+                                           dropout=dropout)
         self.norm1 = LayerNorm(hidden)
         self.linear1 = nn.Linear(hidden, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, hidden)
         self.norm2 = LayerNorm(hidden)
 
     def forward(self, src: torch.Tensor, style: torch.Tensor,
-                style_nonpadding: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        src2, attn = self.mha(src, style, style_nonpadding)
-        src = self.norm1(src + src2)
-        src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+                style_nonpadding: torch.Tensor, forcing: bool = False,
+                drop=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        if forcing:
+            b, tq = src.shape[:2]
+            attn = monotonic_band_attention(tq, style.shape[1], src.device)
+            attn = attn[None].expand(b, -1, -1)
+            src2 = attn @ style
+        else:
+            src2, attn = self.mha(src, style, style_nonpadding, drop)
+        src = self.norm1(src + dropout(src2, self.dropout, drop))
+        y = self.linear2(F.relu(self.linear1(src)))
+        src = self.norm2(src + dropout(y, self.dropout, drop))
         return src, attn
 
 
@@ -73,7 +86,8 @@ class ProsodyAligner(nn.Module):
 
     def forward(self, src: torch.Tensor, style: torch.Tensor,
                 src_nonpadding: torch.Tensor,
-                style_nonpadding: torch.Tensor):
+                style_nonpadding: torch.Tensor, forcing: bool = False,
+                drop=None):
         """-> (aligned [B, Tq, H], guided loss scalar, attn [B, L, Tq, Tk])."""
         tq, tk = src.shape[1], style.shape[1]
         guided = guided_attention_mask(tq, src_nonpadding.sum(-1), tk,
@@ -84,8 +98,8 @@ class ProsodyAligner(nn.Module):
         loss = torch.zeros((), device=src.device)
         attns = []
         for i in range(self.num_layers):
-            output, attn = getattr(self, f"layer_{i}")(output, style,
-                                                       style_nonpadding)
+            output, attn = getattr(self, f"layer_{i}")(
+                output, style, style_nonpadding, forcing, drop)
             attns.append(attn)
             loss = loss + (attn * guided * pair).sum() / torch.clamp_min(
                 pair.sum(), 1.0)
@@ -97,19 +111,25 @@ class LocalStyleAdaptor(nn.Module):
 
     def __init__(self, hidden: int, n_codes: int = 128, rq_depth: int = 4,
                  mel_bins: int = 80, wn_layers: int = 4,
-                 conv_dilations: Sequence[int] = (1, 1, 1, 1, 1)):
+                 conv_dilations: Sequence[int] = (1, 1, 1, 1, 1),
+                 rq_decay: float = 0.99, vae_dropout: float = 0.0):
         super().__init__()
         self.wavenet = WN(mel_bins, kernel_size=3, dilation_rate=1,
                           n_layers=wn_layers)
         self.encoder = ConvBlocks(mel_bins, hidden,
                                   dilations=tuple(conv_dilations),
-                                  kernel_size=5)
-        self.rq = RQBottleneck(n_codes, hidden, rq_depth=rq_depth)
+                                  kernel_size=5, dropout=vae_dropout)
+        self.rq = RQBottleneck(n_codes, hidden, rq_depth=rq_depth,
+                               decay=rq_decay)
 
-    def forward(self, ref_mels: torch.Tensor, ref_f0: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ref_mels [B, T, M], ref_f0 [B, T] -> (style [B, T, H], codes)."""
+    def forward(self, ref_mels: torch.Tensor, ref_f0: torch.Tensor,
+                use_rq: bool = True, noise=None, drop=None):
+        """ref_mels [B, T, M], ref_f0 [B, T] -> (style [B, T, H], the
+        commitment loss, codes), or (style, None, None) without RQ.
+        ``noise`` (training) updates the codebooks."""
         nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(torch.float32)
         h = self.wavenet(ref_mels, nonpadding) + ref_f0[..., None]
-        style = self.encoder(h, nonpadding)
-        return self.rq(style)
+        style = self.encoder(h, nonpadding, drop)
+        if not use_rq:
+            return style, None, None
+        return self.rq(style, noise, nonpadding)

@@ -1,5 +1,4 @@
-"""StyleSinger acoustic model, inference path (port of
-``stylesinger_tpu/models/stylesinger.py`` at ``infer=True, use_diff=True``).
+"""StyleSinger acoustic model (port of ``stylesinger_tpu/models/stylesinger.py``).
 
 FS2 phoneme encoder + note encoder -> spk/emo projection -> durations ->
 static-length ``mel2ph`` -> UMLN (identity at inference) -> residual style
@@ -14,6 +13,16 @@ adaptor (WN + ConvBlocks + RQ + prosody aligner) -> pitch -> decoder.
   denoiser (``diff_decoder_type``); ``fft``, the FFT decoder alone; or
   ``prodiff``, x0-parameterized diffusion from noise in place of the FFT
   decoder.
+
+``forward(infer=True)`` is zero-shot inference (under ``no_grad``);
+``forward(infer=False)`` is the training pass of ``StyleSinger.__call__``
+with the curriculum flags ``use_rq``, ``forcing`` and ``use_diff`` and the
+ground-truth ``mel2ph``, f0 and uv, returning the training outputs and the
+model-side losses (``diff_loss``, ``gdiff*``/``mdiff*``, ``gloss``,
+``rq_loss``).  Its randomness comes from one noise source per JAX stream
+(``dropout``, ``umln``, ``rq``, ``diffusion``); ``deterministic=True``
+(validation) turns dropout, UMLN and the codebook update off.  ProDiff's
+training loss is not ported and raises.
 
 ``use_spk_id``, ``rel_pos`` and a ``pitch_type`` other than ``frame`` are
 not ported and raise.
@@ -35,7 +44,9 @@ from stylesinger_torch.models.common import (
     PitchPredictor, SinusoidalPositionalEmbedding,
 )
 from stylesinger_torch.models.diffnet import DDiffNet, DiffNet, FFTDenoiser
-from stylesinger_torch.models.fs2 import expand_states, predict_mel2ph
+from stylesinger_torch.models.fs2 import (
+    expand_states, grad_scale, predict_mel2ph,
+)
 from stylesinger_torch.models.style import LocalStyleAdaptor, ProsodyAligner
 from stylesinger_torch.models.umln import UMLN
 
@@ -102,7 +113,8 @@ class StyleSinger(nn.Module):
         m = c["audio_num_mel_bins"]
         self.encoder = FastspeechEncoder(vocab_size, h, c["enc_layers"],
                                          c["enc_ffn_kernel_size"],
-                                         num_heads=c["num_heads"])
+                                         num_heads=c["num_heads"],
+                                         dropout=c["dropout"])
         self.note_encoder = NoteEncoder(h, c["note_vocab"],
                                         c["note_type_vocab"])
         self.spk_embed_proj = nn.Linear(DVEC_DIM, h)
@@ -115,7 +127,8 @@ class StyleSinger(nn.Module):
                 h, n_codes=c["nRQ"], rq_depth=c["rq_depth"], mel_bins=m,
                 wn_layers=c.get("style_wn_layers", 4),
                 conv_dilations=tuple(c.get("style_conv_dilations",
-                                           (1, 1, 1, 1, 1))))
+                                           (1, 1, 1, 1, 1))),
+                rq_decay=c["rq_decay"], vae_dropout=c["vae_dropout"])
             self.style_pos = SinusoidalPositionalEmbedding(h)
             self.l1 = nn.Linear(2 * h, h)
             self.align = ProsodyAligner(
@@ -124,7 +137,8 @@ class StyleSinger(nn.Module):
         ph = c["predictor_hidden"] if c["predictor_hidden"] > 0 else h
         self.dur_predictor = DurationPredictor(
             h, ph, n_layers=c["dur_predictor_layers"],
-            kernel_size=c["dur_predictor_kernel"])
+            kernel_size=c["dur_predictor_kernel"],
+            dropout=c["predictor_dropout"])
         self.pitch_embed = Embedding(300, h, padding_idx=0)
         if c["f0_gen"] == "gmdiff":
             for name in ("gm_diffnet", "gm_diffnet_inpainte"):
@@ -143,7 +157,8 @@ class StyleSinger(nn.Module):
         if c["decoder"] != "prodiff":  # ProDiff replaces the FFT decoder
             self.decoder = FastspeechDecoder(h, c["dec_layers"],
                                              c["dec_ffn_kernel_size"],
-                                             num_heads=c["num_heads"])
+                                             num_heads=c["num_heads"],
+                                             dropout=c["dropout"])
             self.mel_out = nn.Linear(h, m)
         if c["decoder"] in ("diffsinger", "prodiff"):
             if c.get("diff_decoder_type", "wavenet") == "fft":
@@ -174,31 +189,60 @@ class StyleSinger(nn.Module):
                 np.asarray(c[name], np.float32)[:kb]), persistent=False)
 
     # ------------------------------------------------------------- style
-    def get_style(self, decoder_inp, ref_mels, ref_f0, tgt_nonpadding):
-        style, _codes = self.style_extractor(ref_mels, ref_f0)
+    def get_style(self, decoder_inp, ref_mels, ref_f0, tgt_nonpadding,
+                  ret: Dict, use_rq: bool = True, forcing: bool = False,
+                  rq_noise=None, drop=None):
+        """Style extraction and content-style alignment; the RQ commitment
+        and guided-attention losses go to ``ret``."""
+        style, rq_loss, _codes = self.style_extractor(
+            ref_mels, ref_f0, use_rq=use_rq, noise=rq_noise, drop=drop)
         ref_nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(torch.float32)
         style = self.l1(torch.cat([style, self.style_pos(ref_nonpadding)],
                                   dim=-1))
-        aligned, _loss, _attn = self.align(decoder_inp, style,
-                                           tgt_nonpadding, ref_nonpadding)
+        aligned, gloss, _attn = self.align(decoder_inp, style,
+                                           tgt_nonpadding, ref_nonpadding,
+                                           forcing=forcing, drop=drop)
+        ret["gloss"] = gloss
+        if rq_loss is not None:
+            ret["rq_loss"] = rq_loss
         return aligned
 
     # ------------------------------------------------------------- pitch
-    def inpaint_pitch(self, inp_agnostic, inp_specific, mel2ph, midi_notes,
-                      noise, ret: Dict):
-        """The two pitch paths (agnostic, specific), averaged."""
+    def inpaint_pitch(self, inp_agnostic, inp_specific, f0, uv, mel2ph,
+                      note, noise, drop, ret: Dict, *, infer: bool):
+        """The two pitch paths (agnostic, specific), averaged.  Inference
+        samples the f0 + uv diffusions; training takes their losses
+        (``gdiff1``/``mdiff1`` agnostic, ``gdiff2``/``mdiff2`` specific)
+        and reads the pitch embedding off the ground-truth ``f0``/``uv``."""
         c = self.cfg
         nonpadding = (mel2ph > 0).to(torch.float32)
-        if c["f0_gen"] == "gmdiff":
+        inp_agnostic = grad_scale(inp_agnostic, c["predictor_grad"])
+        inp_specific = grad_scale(inp_specific, c["predictor_grad"])
+        if c["f0_gen"] == "gmdiff" and infer:
+            midi_notes = expand_states(note.to(torch.float32)[:, :, None],
+                                       mel2ph)[..., 0]
             p_agn, p_spec = self._gmdiff_pitch(
                 inp_agnostic, inp_specific, nonpadding, midi_notes, noise)
+        elif c["f0_gen"] == "gmdiff":
+            normed = minmax_norm_lf0(f0)[..., None]
+            for k, net, cond in (("1", self.gm_diffnet, inp_agnostic),
+                                 ("2", self.gm_diffnet_inpainte,
+                                  inp_specific)):
+                ret[f"mdiff{k}"], ret[f"gdiff{k}"] = diff.gm_mixed_loss(
+                    lambda f0_t, uv_t, t, net=net, cond=cond:
+                    net(f0_t, uv_t, t, cond, nonpadding),
+                    self.f0_sched, normed, uv, nonpadding, noise)
+            p_agn = p_spec = torch.stack([f0, uv], dim=-1)
         else:
-            p_agn = self.pitch_predictor(inp_agnostic, nonpadding)
-            p_spec = self.pitch_inpainter_predictor(inp_specific, nonpadding)
+            p_agn = self.pitch_predictor(inp_agnostic, nonpadding, drop)
+            p_spec = self.pitch_inpainter_predictor(inp_specific, nonpadding,
+                                                    drop)
         pitch_pred = p_spec / 2 + p_agn / 2
         ret["pitch_pred"] = pitch_pred
-        uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
-        f0_denorm = denorm_f0(pitch_pred[:, :, 0], uv if c["use_uv"] else None,
+        if infer:
+            f0 = pitch_pred[:, :, 0]
+            uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
+        f0_denorm = denorm_f0(f0, uv if c["use_uv"] else None,
                               pitch_norm=c["pitch_norm"],
                               f0_mean=c["f0_mean"], f0_std=c["f0_std"],
                               pitch_padding=mel2ph == 0)
@@ -235,74 +279,120 @@ class StyleSinger(nn.Module):
         return preds
 
     # ----------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, txt_tokens: torch.Tensor, spk_embed: torch.Tensor,
                 emo_embed: torch.Tensor, ref_mels: torch.Tensor,
                 ref_f0: torch.Tensor, note: torch.Tensor,
                 note_dur: torch.Tensor, note_type: torch.Tensor, noise,
-                max_frames: Optional[int] = None) -> Dict:
-        """Zero-shot inference.  Returns mel_out [B, max_frames, M],
-        f0_denorm [B, max_frames], mel2ph, dur, pitch_pred."""
+                max_frames: Optional[int] = None, *, infer: bool = True,
+                mel2ph: Optional[torch.Tensor] = None,
+                f0: Optional[torch.Tensor] = None,
+                uv: Optional[torch.Tensor] = None, use_rq: bool = True,
+                forcing: bool = False, use_diff: bool = True,
+                deterministic: bool = False) -> Dict:
+        """``infer=True``: zero-shot inference (under ``no_grad``) from the
+        noise source ``noise``; returns mel_out [B, max_frames, M],
+        f0_denorm [B, max_frames], mel2ph, dur and pitch_pred.
+
+        ``infer=False``: the training pass on the ground-truth ``mel2ph``
+        [B, T], ``f0`` (log2 Hz, interpolated) and ``uv`` [B, T];
+        ``ref_mels``/``ref_f0`` are the item's own mel and f0.  ``noise``
+        maps each stream to its source: ``dropout`` (None turns dropout
+        off), ``umln``, ``rq`` and ``diffusion``; with ``deterministic``
+        only ``diffusion`` is read.  Returns, besides, style, decoder_inp
+        and the model-side losses of the phase."""
+        if not infer and self.cfg["decoder"] == "prodiff":
+            raise NotImplementedError(
+                "stylesinger_torch does not port ProDiff's training loss")
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not infer):
+            return self._forward(
+                txt_tokens, spk_embed, emo_embed, ref_mels, ref_f0, note,
+                note_dur, note_type, {"diffusion": noise} if infer else noise,
+                max_frames, infer=infer, mel2ph=mel2ph, f0=f0, uv=uv,
+                use_rq=use_rq or infer, forcing=forcing and not infer,
+                use_diff=use_diff, deterministic=deterministic or infer)
+
+    def _forward(self, txt_tokens, spk_embed, emo_embed, ref_mels, ref_f0,
+                 note, note_dur, note_type, noise: Dict, max_frames, *,
+                 infer, mel2ph, f0, uv, use_rq, forcing, use_diff,
+                 deterministic) -> Dict:
         c = self.cfg
-        max_frames = max_frames or c["max_frames"]
+        drop = None if deterministic else noise.get("dropout")
         ret: Dict = {}
-        encoder_out = self.encoder(txt_tokens) + self.note_encoder(
+        encoder_out = self.encoder(txt_tokens, drop) + self.note_encoder(
             note, note_dur, note_type)
         src_nonpadding = (txt_tokens > 0).to(torch.float32)
         spk = self.spk_embed_proj(spk_embed)[:, None, :]
         emo = self.emo_embed_proj(emo_embed)[:, None, :] if c["emo"] else 0.0
 
-        log_dur = self.dur_predictor(
-            (encoder_out + spk + emo) * src_nonpadding[..., None],
-            src_nonpadding)
-        ret["dur"] = log_dur
-        mel2ph = predict_mel2ph(log_dur, src_nonpadding, max_frames)
+        dur_inp = grad_scale((encoder_out + spk + emo) *
+                             src_nonpadding[..., None], c["predictor_grad"])
+        ret["dur"] = self.dur_predictor(dur_inp, src_nonpadding, drop)
+        if infer:
+            mel2ph = predict_mel2ph(ret["dur"], src_nonpadding,
+                                    max_frames or c["max_frames"])
         ret["mel2ph"] = mel2ph
         tgt = (mel2ph > 0).to(torch.float32)
         tgt3 = tgt[..., None]
         decoder_inp = expand_states(encoder_out, mel2ph)
         if c["umln"]:
-            decoder_inp = self.norm(decoder_inp, spk + emo)
+            decoder_inp = self.norm(decoder_inp, spk + emo,
+                                    None if deterministic else noise["umln"])
 
         style = 0.0
         if c["style"]:
-            style = self.get_style(decoder_inp, ref_mels, ref_f0, tgt)
-        midi_notes = expand_states(note.to(torch.float32)[:, :, None],
-                                   mel2ph)[..., 0]
+            style = self.get_style(
+                decoder_inp, ref_mels, ref_f0, tgt, ret, use_rq=use_rq,
+                forcing=forcing,
+                rq_noise=None if deterministic else noise["rq"], drop=drop)
+        ret["style"] = style
         pitch_embed = self.inpaint_pitch(
             decoder_inp * tgt3, (decoder_inp + spk + emo + style) * tgt3,
-            mel2ph, midi_notes, noise, ret)
+            f0, uv, mel2ph, note, noise["diffusion"], drop, ret, infer=infer)
 
         decoder_inp = decoder_inp + spk + emo + pitch_embed
         if c["style"]:
             decoder_inp = decoder_inp + style
         decoder_inp = decoder_inp * tgt3
+        ret["decoder_inp"] = decoder_inp
         if c["decoder"] == "prodiff":
-            ret["mel_out"] = self.run_prodiff(decoder_inp, noise) * tgt3
+            ret["mel_out"] = self.run_prodiff(decoder_inp,
+                                              noise["diffusion"]) * tgt3
             return ret
-        coarse = self.mel_out(self.decoder(decoder_inp, tgt)) * tgt3
+        coarse = self.mel_out(self.decoder(decoder_inp, tgt, drop)) * tgt3
         ret["mel_out"] = coarse
-        if c["decoder"] == "diffsinger":
+        if c["decoder"] == "diffsinger" and use_diff:
             b, t = coarse.shape[:2]
-            feats = [coarse] + ([decoder_inp] if c["use_txt_cond"] else [])
+            feats = [coarse.detach()] + (
+                [decoder_inp] if c["use_txt_cond"] else [])
             feats.append(spk.expand(b, t, -1))
             if c["emo"]:
                 feats.append(emo.expand(b, t, -1))
             if c["style"]:
                 feats.append(style)
             cond = self.ln_proj(torch.cat(feats, dim=-1))
-            ret["mel_out"] = self.run_diffsinger(coarse, cond, noise) * tgt3
+            if infer:
+                ret["mel_out"] = self.run_diffsinger(
+                    coarse, cond, noise["diffusion"]) * tgt3
+            else:
+                ret["diff_loss"] = diff.shallow_p_losses(
+                    self._denoiser(cond, drop), self.mel_sched,
+                    diff.norm_spec(ref_mels, self.spec_min, self.spec_max),
+                    noise["diffusion"], c["K_step"], nonpadding=tgt)
         return ret
+
+    def _denoiser(self, cond, drop=None):
+        """The mel denoiser on ``cond`` as ``fn(x_t, t)``; the FFT denoiser
+        carries dropout."""
+        if isinstance(self.postdiff, FFTDenoiser):
+            return lambda x_t, t_: self.postdiff(x_t, t_, cond, drop)
+        return lambda x_t, t_: self.postdiff(x_t, t_, cond)
 
     def run_diffsinger(self, coarse, cond, noise):
         """Shallow mel diffusion from the coarse mel: DPM-Solver++(2M) when
         ``dpm_steps`` > 0, else PLMS when ``pndm_speedup`` > 1, else the
         ancestral chain."""
         c = self.cfg
-
-        def denoise_fn(x_t, t_):
-            return self.postdiff(x_t, t_, cond)
-
+        denoise_fn = self._denoiser(cond)
         coarse_norm = diff.norm_spec(coarse, self.spec_min, self.spec_max)
         speedup = int(c.get("pndm_speedup", 1) or 1)
         dpm_steps = int(c.get("dpm_steps", 0) or 0)

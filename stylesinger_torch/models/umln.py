@@ -1,8 +1,11 @@
 """Uncertainty-Modeling Layer Normalization (port of ``models/umln.py``).
 
-At inference UMLN returns its input untouched; the affine layer exists so
-that checkpoints load.  The training branch normalizes with the unbiased
-(ddof=1) std, like ``torch.std`` in the reference.
+Outside training UMLN returns its input untouched (the affine layer exists
+so that checkpoints load).  In training it normalizes over the hidden dim
+with the unbiased (ddof=1) std, like ``torch.std`` in the reference, and
+re-scales and shifts with the style projection, perturbed by Gaussian
+noise scaled by the projection's std across the batch (zero at B = 1).
+One coin with probability ``p`` decides for the whole batch.
 """
 
 from __future__ import annotations
@@ -12,11 +15,28 @@ import torch.nn as nn
 
 
 class UMLN(nn.Module):
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, p: float = 0.5, eps: float = 1e-6):
         super().__init__()
+        self.p = p
+        self.eps = eps
         self.affine = nn.Linear(hidden, 2 * hidden)
 
-    def forward(self, x: torch.Tensor, style_embed: torch.Tensor
-                ) -> torch.Tensor:
-        """x: [B, T, H]; style_embed: [B, 1, H].  Inference mode only."""
-        return x
+    def _batch_std(self, v: torch.Tensor) -> torch.Tensor:
+        if v.shape[0] == 1:
+            return torch.zeros_like(v)
+        return (v.std(dim=0, keepdim=True) + self.eps).expand_as(v)
+
+    def forward(self, x: torch.Tensor, style_embed: torch.Tensor,
+                noise=None) -> torch.Tensor:
+        """x: [B, T, H]; style_embed: [B, 1, H]; ``noise``, the step's UMLN
+        source, turns training mode on.  Draws: ``normal`` (beta),
+        ``normal`` (gamma), ``bernoulli`` (the coin)."""
+        if noise is None:
+            return x
+        mu = x.mean(-1, keepdim=True)
+        x_normed = (x - mu) / (x.std(-1, keepdim=True) + self.eps)
+        mu1, sig1 = self.affine(style_embed).chunk(2, dim=-1)
+        beta = mu1 + noise.normal(mu1.shape) * self._batch_std(mu1)
+        gamma = sig1 + noise.normal(sig1.shape) * self._batch_std(sig1)
+        return torch.where(noise.bernoulli(self.p), gamma * x_normed + beta,
+                           x)

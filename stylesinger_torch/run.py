@@ -1,25 +1,38 @@
-"""Command-line entry point of the port: zero-shot synthesis (the ``infer``
-command of ``python -m stylesinger_tpu.run``).
+"""Command-line entry point of the port: the ``train`` and ``infer``
+commands of ``python -m stylesinger_tpu.run``.
 
+    python -m stylesinger_torch.run train [--recipe stylesinger] \\
+        [--hparams 'binary_data_dir=data/binary/style,max_updates=1000'] \\
+        [--exp_name stylesinger] [--work_dir_root checkpoints] [--device cuda]
     python -m stylesinger_torch.run infer --ref_audio ref.wav --allow_random \\
         [--recipe stylesinger] [--hparams 'f0_speedup=5,dpm_steps=10'] \\
         [--out infer_out/test.wav] [--device cuda]
 
-It sings the JAX package's example phrase (``inference.py::example_run``)
-in the style of the reference clip ``--ref_audio`` and writes the wav.  The
-config is the defaults, the recipe ``--recipe`` of ``egs/`` (``RECIPES`` in
-``config.py``) and the ``--hparams`` overrides, in that order.  The port
-cannot load a checkpoint yet, so, as the JAX command does without one, it
-refuses to synthesize from random weights unless ``--allow_random`` is
-given; the weights are then seeded from the config's ``seed``.  It runs on
-``--device`` (``cuda`` by default, which raises when there is no GPU).
-The other commands of the JAX CLI (preprocess, binarize, train, test) wait
-for their slices.
+The config is the defaults, the recipe ``--recipe`` of ``egs/`` (``RECIPES``
+in ``config.py``) and the ``--hparams`` overrides, in that order.
+
+``train`` trains the acoustic model on the binarized corpus in
+``binary_data_dir`` (its ``phone_set.json`` and the train and valid
+shards) into ``<work_dir_root>/<exp_name>``, where it writes
+``config.json``, ``metrics.jsonl`` and the checkpoints, and from whose
+latest checkpoint it resumes.
+
+``infer`` sings the JAX package's example phrase (``inference.py::
+example_run``) in the style of the reference clip ``--ref_audio`` and writes
+the wav.  It does not load a checkpoint yet, so, as the JAX command does
+without one, it refuses to synthesize from random weights unless
+``--allow_random`` is given; the weights are then seeded from the config's
+``seed``.
+
+Both run on ``--device`` (``cuda`` by default, which raises when there is
+no GPU).  The other commands of the JAX CLI (preprocess, binarize, test)
+wait for their slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import Optional, Sequence
@@ -60,16 +73,47 @@ def example_run(cfg, ref_audio: str, out_path: str = "infer_out/test.wav",
     return out_path
 
 
+def train(cfg, work_dir: str, device: str = "cuda"):
+    """``run.py train``: the binarized corpus of ``cfg["binary_data_dir"]``
+    through :meth:`Trainer.fit`; returns the final train state."""
+    from stylesinger_torch.data.batching import BucketBatcher, EpochBatches
+    from stylesinger_torch.data.dataset import StyleSingerDataset
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.text import build_token_encoder
+    from stylesinger_torch.training.trainer import Trainer
+
+    os.makedirs(work_dir, exist_ok=True)
+    with open(os.path.join(work_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1, sort_keys=True)
+    with open(os.path.join(cfg["binary_data_dir"], "phone_set.json")) as f:
+        encoder = build_token_encoder(json.load(f))
+    model = StyleSinger(cfg, len(encoder))
+    train_ds = StyleSingerDataset(cfg, cfg["train_set_name"])
+    valid_ds = StyleSingerDataset(cfg, cfg["valid_set_name"])
+    trainer = Trainer(model, cfg, work_dir, device=device)
+
+    def valid_batches():
+        return BucketBatcher(valid_ds, cfg, shuffle=False,
+                             max_tokens=cfg["max_valid_tokens"],
+                             max_sentences=cfg["max_valid_sentences"]
+                             ).batches(0)
+
+    return trainer.fit(EpochBatches(train_ds, cfg), valid_batches)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser("stylesinger_torch")
-    ap.add_argument("command", choices=["infer"])
+    ap.add_argument("command", choices=["train", "infer"])
     ap.add_argument("--recipe", default=None,
                     help="a recipe of egs/ (config.py RECIPES), e.g. "
                     "stylesinger")
     ap.add_argument("--hparams", default="",
                     help="'a=1,b=2' overrides, as the JAX CLI takes them")
-    ap.add_argument("--ref_audio", required=True,
-                    help="the reference clip (WAV) whose style is sung")
+    ap.add_argument("--exp_name", default="stylesinger")
+    ap.add_argument("--work_dir_root", default="checkpoints")
+    ap.add_argument("--ref_audio", default=None,
+                    help="infer: the reference clip (WAV) whose style is "
+                    "sung")
     ap.add_argument("--out", default="infer_out/test.wav")
     ap.add_argument("--allow_random", action="store_true",
                     help="synthesize from seeded random weights (the port "
@@ -81,6 +125,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from stylesinger_torch.config import load_config, parse_hparams
 
     cfg = load_config(args.recipe, **parse_hparams(args.hparams))
+    if args.command == "train":
+        work_dir = os.path.join(args.work_dir_root, args.exp_name)
+        state = train(cfg, work_dir, device=args.device)
+        print(f"| trained to step {state.step}; checkpoints in {work_dir}")
+        return 0
+    if args.ref_audio is None:
+        ap.error("infer needs --ref_audio")
     try:
         out = example_run(cfg, args.ref_audio, out_path=args.out,
                           allow_random=args.allow_random, device=args.device)

@@ -1,0 +1,164 @@
+"""Checkpoints with keep-K pruning, a best-validation copy, permanent
+milestones and resume (port of ``stylesinger_tpu/training/checkpoint.py``,
+written with ``torch.save`` instead of orbax).
+
+Layout under the work dir:
+
+- ``ckpt/model_ckpt_steps_<step>.pt``: the model's parameters and RQ
+  buffers, the optimizer's state and the step; the K latest are kept (never
+  pruned by metric, so the latest step always survives for resume);
+- ``ckpt_best/model_ckpt_best.pt`` with ``best_val.json`` beside it: the
+  copy with the lowest validation loss so far;
+- ``ckpt_milestones/model_ckpt_steps_<step>.pt``: every
+  ``milestone_interval`` steps, the model alone (an eval-only payload),
+  never pruned.
+
+Every file is written to a ``.part`` name and renamed into place.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from stylesinger_torch.training.step import TrainState
+
+_STEP_FILE = re.compile(r"^model_ckpt_steps_(\d+)\.pt$")
+BEST_FILE = "model_ckpt_best.pt"
+
+
+def _save(payload: Dict[str, Any], path: str) -> None:
+    torch.save(payload, path + ".part")
+    os.replace(path + ".part", path)
+
+
+def _steps_in(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_STEP_FILE.match,
+                                               os.listdir(directory)) if m)
+
+
+def load_payload(path: str, device: Any = "cpu") -> Dict[str, Any]:
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+class CheckpointManager:
+    """Saves and restores :class:`TrainState` under ``<work_dir>``."""
+
+    def __init__(self, work_dir: str, keep: int = 3, save_best: bool = True,
+                 milestone_interval: int = 0):
+        root = os.path.abspath(work_dir)
+        self.dir = os.path.join(root, "ckpt")
+        self.best_dir = os.path.join(root, "ckpt_best")
+        self.milestone_dir = os.path.join(root, "ckpt_milestones")
+        os.makedirs(self.dir, exist_ok=True)
+        self.keep = keep
+        self.save_best = save_best
+        self.milestone_interval = int(milestone_interval)
+        self._best = self._read_best_sidecar() if save_best else None
+
+    # -------------------------------------------------------------- save
+    @staticmethod
+    def payload(state: TrainState, with_opt: bool = True) -> Dict[str, Any]:
+        out = {"model": state.model.state_dict(), "step": int(state.step)}
+        if with_opt:
+            out["opt"] = state.opt.state_dict()
+        return out
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"model_ckpt_steps_{step}.pt")
+
+    def _best_path(self) -> str:
+        return os.path.join(self.best_dir, BEST_FILE)
+
+    def save(self, step: int, state: TrainState,
+             val_loss: Optional[float] = None) -> None:
+        payload = self.payload(state)
+        payload["step"] = int(step)
+        _save(payload, self._path(step))
+        for old in _steps_in(self.dir)[:-self.keep]:
+            os.remove(self._path(old))
+        if self.milestone_interval > 0 and step > 0 and \
+                step % self.milestone_interval == 0 and \
+                step not in self.milestone_steps():
+            os.makedirs(self.milestone_dir, exist_ok=True)
+            milestone = self.payload(state, with_opt=False)
+            milestone["step"] = int(step)
+            _save(milestone, os.path.join(self.milestone_dir,
+                                          f"model_ckpt_steps_{step}.pt"))
+        if self.save_best and val_loss is not None and \
+                (self._best is None or float(val_loss) < self._best):
+            self._best = float(val_loss)
+            os.makedirs(self.best_dir, exist_ok=True)
+            _save(payload, self._best_path())
+            self._write_best_sidecar(step, self._best)
+
+    def _sidecar_path(self) -> str:
+        return os.path.join(self.best_dir, "best_val.json")
+
+    def _write_best_sidecar(self, step: int, val_loss: float) -> None:
+        with open(self._sidecar_path() + ".part", "w") as f:
+            json.dump({"step": int(step), "val_loss": float(val_loss)}, f)
+        os.replace(self._sidecar_path() + ".part", self._sidecar_path())
+
+    def _read_best_sidecar(self) -> Optional[float]:
+        try:
+            with open(self._sidecar_path()) as f:
+                return float(json.load(f)["val_loss"])
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    # ----------------------------------------------------------- restore
+    def latest_step(self) -> Optional[int]:
+        steps = _steps_in(self.dir)
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> List[int]:
+        return _steps_in(self.dir)
+
+    def milestone_steps(self) -> List[int]:
+        return _steps_in(self.milestone_dir)
+
+    def best_step(self) -> Optional[int]:
+        if not os.path.exists(self._best_path()):
+            return None
+        with open(self._sidecar_path()) as f:
+            return int(json.load(f)["step"])
+
+    @staticmethod
+    def _load_into(state: TrainState, payload: Dict[str, Any]) -> int:
+        state.model.load_state_dict(payload["model"])
+        if "opt" in payload:
+            state.opt.load_state_dict(payload["opt"])
+        state.step = int(payload["step"])
+        return state.step
+
+    def restore(self, state: TrainState, step: Optional[int] = None
+                ) -> Tuple[TrainState, int]:
+        """The latest (or the given) checkpoint into ``state``; (state, 0)
+        when there is none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return state, 0
+        return state, self._load_into(
+            state, load_payload(self._path(step), state.device))
+
+    def restore_best(self, state: TrainState) -> Tuple[TrainState, int]:
+        """The best-validation copy (the latest checkpoint when there is
+        none)."""
+        if not os.path.exists(self._best_path()):
+            return self.restore(state)
+        return state, self._load_into(
+            state, load_payload(self._best_path(), state.device))
+
+    def restore_milestone(self, state: TrainState, step: int) -> TrainState:
+        """A milestone's model into ``state`` (the optimizer untouched:
+        milestones are eval-only)."""
+        path = os.path.join(self.milestone_dir, f"model_ckpt_steps_{step}.pt")
+        self._load_into(state, load_payload(path, state.device))
+        return state

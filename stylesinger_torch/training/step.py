@@ -1,0 +1,270 @@
+"""The train and eval steps of StyleSinger (port of
+``stylesinger_tpu/training/step.py``).
+
+- the curriculum (``rq_start``, ``forcing``, ``diff_start``) is a
+  :class:`Phase` of three flags, taken from the global step;
+- the RQ codebooks' EMA statistics are buffers of the model, updated by its
+  training pass;
+- the optimizer is optax's ``chain(clip_by_global_norm(clip_grad_norm),
+  adamw(schedule, b1, b2, eps=1e-8, weight_decay))``, wrapped in
+  ``MultiSteps`` when ``accumulate_grad_batches`` > 1, written out to
+  optax's definitions (:class:`Optimizer`);
+- randomness: one ``torch.Generator`` per JAX stream (``dropout``,
+  ``umln``, ``rq``, ``diffusion``), each seeded from (seed, step, stream),
+  so a resumed run draws what an unbroken one draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.training.losses import compute_losses
+from stylesinger_torch.training.schedules import make_schedule
+
+STREAMS = ("dropout", "umln", "rq", "diffusion")
+
+
+class Phase(NamedTuple):
+    """The curriculum flags of one step."""
+    use_rq: bool
+    forcing: bool
+    use_diff: bool
+
+
+def phase_for_step(step: int, cfg: Any) -> Phase:
+    return Phase(
+        use_rq=bool(step > cfg["rq_start"]),
+        forcing=bool(step < cfg["forcing"]),
+        use_diff=bool(cfg["decoder"] == "diffsinger"
+                      and step > cfg["diff_start"]),
+    )
+
+
+def phase_boundaries(cfg: Any) -> tuple:
+    """The steps at which :func:`phase_for_step` changes value."""
+    return (cfg["forcing"], cfg["rq_start"] + 1, cfg["diff_start"] + 1)
+
+
+def stream_seed(seed: int, step: int, stream: int) -> int:
+    return int(np.random.SeedSequence([seed, step, stream]).generate_state(
+        1, np.uint64)[0])
+
+
+def step_noise(seed: int, step: int,
+               device: Union[str, torch.device]) -> Dict[str, Noise]:
+    """The noise sources of global step ``step``, one per stream."""
+    return {name: Noise(stream_seed(seed, step, i), device)
+            for i, name in enumerate(STREAMS)}
+
+
+def batch_to_device(batch: Dict, device: Union[str, torch.device]
+                    ) -> Dict[str, torch.Tensor]:
+    """The array fields of a collated batch as tensors on ``device``:
+    integers as int64, floats as float32."""
+    out = {}
+    for k, v in batch.items():
+        if k == "nsamples" or not isinstance(v, (np.ndarray, torch.Tensor)):
+            continue
+        t = torch.as_tensor(v)
+        t = t.long() if not t.is_floating_point() else t.float()
+        out[k] = t.to(device)
+    return out
+
+
+def model_inputs(batch: Dict) -> Dict:
+    """A batch as ``StyleSinger.forward(infer=False)`` keywords: the item's
+    own mel and f0 are the style reference."""
+    return dict(
+        txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
+        spk_embed=batch["spk_embed"], emo_embed=batch.get("emo_embed"),
+        ref_mels=batch["mels"], ref_f0=batch["f0"], f0=batch["f0"],
+        uv=batch["uv"], note=batch["notes"], note_dur=batch["note_durs"],
+        note_type=batch["note_types"])
+
+
+def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The sum of the losses in sorted key order (JAX's tree-leaf order)."""
+    return sum(losses[k] for k in sorted(losses))
+
+
+class Optimizer:
+    """optax ``chain(clip_by_global_norm(clip), adamw(schedule, b1, b2,
+    eps=1e-8, eps_root=0, weight_decay))``, in ``MultiSteps(k)`` when
+    ``accumulate_grad_batches`` k > 1:
+
+    - clipping scales by ``clip / g_norm`` only when ``g_norm >= clip``;
+    - the learning rate is the schedule at the count before the update;
+    - with k > 1 the gradients are averaged over k calls and the inner
+      update is applied at every k-th call.
+
+    A parameter without a gradient counts as a zero gradient."""
+
+    def __init__(self, named_params: Dict[str, nn.Parameter], cfg: Any):
+        self.names = list(named_params)
+        self.schedule = make_schedule(cfg)
+        self.clip = float(cfg["clip_grad_norm"])
+        self.b1 = float(cfg["optimizer_adam_beta1"])
+        self.b2 = float(cfg["optimizer_adam_beta2"])
+        self.eps = 1e-8
+        self.weight_decay = float(cfg["weight_decay"])
+        self.k = int(cfg.get("accumulate_grad_batches", 1))
+        params = list(named_params.values())
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in params] if self.k > 1 \
+            else None
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor],
+             grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """Updates ``params`` in place; returns the gradients' global norm
+        (before clipping)."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        g_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        if self.k > 1:
+            self.acc = torch._foreach_add(self.acc, torch._foreach_div(
+                torch._foreach_sub(grads, self.acc), self.mini_step + 1))
+            self.mini_step = (self.mini_step + 1) % self.k
+            if self.mini_step != 0:
+                return g_norm
+            grads = self.acc
+            self.acc = [torch.zeros_like(p) for p in params]
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+        else:
+            norm = g_norm
+        self._adamw(params, grads, norm)
+        return g_norm
+
+    def _adamw(self, params, grads, norm):
+        keep = norm < self.clip
+        one = torch.ones_like(norm)
+        grads = torch._foreach_mul(
+            torch._foreach_div(grads, torch.where(keep, one, norm)),
+            torch.where(keep, one, torch.full_like(norm, self.clip)))
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        self.mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                     torch._foreach_mul(self.mu, b1))
+        self.nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+            torch._foreach_mul(self.nu, b2))
+        c1 = float(1 - np.float32(b1) ** np.float32(self.count))
+        c2 = float(1 - np.float32(b2) ** np.float32(self.count))
+        upd = torch._foreach_div(
+            torch._foreach_div(self.mu, c1),
+            torch._foreach_add(torch._foreach_sqrt(
+                torch._foreach_div(self.nu, c2)), self.eps))
+        if self.weight_decay:
+            upd = torch._foreach_add(upd, torch._foreach_mul(
+                list(params), self.weight_decay))
+        torch._foreach_add_(list(params), torch._foreach_mul(upd, -lr))
+
+    def state_dict(self) -> Dict[str, Any]:
+        out = {"count": self.count, "mini_step": self.mini_step,
+               "mu": dict(zip(self.names, self.mu)),
+               "nu": dict(zip(self.names, self.nu))}
+        if self.acc is not None:
+            out["acc"] = dict(zip(self.names, self.acc))
+        return out
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.count = int(sd["count"])
+        self.mini_step = int(sd["mini_step"])
+        for key in ("mu", "nu", "acc"):
+            if getattr(self, key) is None:
+                continue
+            setattr(self, key, [sd[key][n].to(t.device, t.dtype).clone()
+                                for n, t in zip(self.names,
+                                                getattr(self, key))])
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and RQ buffers), its optimizer and the number
+    of steps taken."""
+    model: nn.Module
+    opt: Optimizer
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def init_state(model: nn.Module, cfg: Any,
+               seed: Optional[int] = None) -> TrainState:
+    """Seeded random weights for ``model`` (on its device), the EMA copy of
+    each codebook equal to the codebook and zero cluster sizes, and a fresh
+    optimizer."""
+    from stylesinger_torch.inference import init_random_
+
+    g = torch.Generator().manual_seed(int(cfg["seed"] if seed is None
+                                          else seed))
+    device = next(model.parameters()).device
+    init_random_(model.cpu(), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "embed_ema"):
+                m.embed_ema.copy_(m.embedding)
+                m.cluster_size_ema.zero_()
+    model.to(device)
+    return TrainState(model, Optimizer(dict(model.named_parameters()), cfg))
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               phase: Phase, cfg: Any,
+               noise: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a batch of tensors on the model's device
+    (:func:`batch_to_device`).  ``noise`` replaces the step's own sources
+    (:func:`step_noise`); a ``dropout`` entry of None turns dropout off.
+    Returns the losses, ``total_loss`` and ``grad_norm`` (detached)."""
+    model = state.model
+    if noise is None:
+        noise = step_noise(cfg["seed"], state.step, state.device)
+    ret = model(**model_inputs(batch), noise=noise, infer=False,
+                use_rq=phase.use_rq, forcing=phase.forcing,
+                use_diff=phase.use_diff)
+    losses = compute_losses(ret, batch, cfg, use_rq=phase.use_rq,
+                            forcing=phase.forcing, use_diff=phase.use_diff)
+    total = total_loss(losses)
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    total.backward()
+    grad_norm = state.opt.step(params, [p.grad for p in params])
+    state.step += 1
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["total_loss"] = total.detach()
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
+              phase: Phase, cfg: Any,
+              noise: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, torch.Tensor]:
+    """Validation losses: deterministic (no dropout, UMLN or codebook
+    update), with the step's diffusion draws."""
+    if noise is None:
+        noise = step_noise(cfg["seed"], state.step, state.device)
+    ret = state.model(**model_inputs(batch), noise=noise, infer=False,
+                      use_rq=phase.use_rq, forcing=phase.forcing,
+                      use_diff=phase.use_diff, deterministic=True)
+    losses = compute_losses(ret, batch, cfg, use_rq=phase.use_rq,
+                            forcing=phase.forcing, use_diff=phase.use_diff)
+    losses["total_loss"] = total_loss(losses)
+    return losses

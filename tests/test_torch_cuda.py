@@ -178,3 +178,72 @@ class _CpuDraws:
 
     def uniform(self, shape):
         return self.noise.uniform(shape).to(self.device)
+
+    def randint(self, shape, low, high):
+        return self.noise.randint(shape, low, high).to(self.device)
+
+    def bernoulli(self, p, shape=()):
+        return self.noise.bernoulli(p, shape).to(self.device)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_cpu(cuda):
+    """One train step of the tiny model (RQ, forcing off, mel diffusion):
+    the same weights and batch, the same draws (CPU generators, handed over
+    on the card), TF32 off.  Every loss and the grad norm within 1e-3
+    (relative, atol 1e-3); each gradient leaf within 1e-3 * max|g_leaf| +
+    1e-6 * max|g| (the second term: leaves that are zero in exact
+    arithmetic carry f32 rounding); the RQ buffers within 1e-5."""
+    from stylesinger_torch.data.batching import collate_batch
+    from stylesinger_torch.data.dataset import StyleSingerDataset
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(4):
+        t = int(rng.integers(16, 30))
+        tt = max(2, t // 4)
+        items.append({
+            "mel": rng.standard_normal((t, 16)).astype(np.float32) - 2,
+            "mel2ph": np.repeat(np.arange(1, tt + 1), 4)[:t],
+            "f0": rng.uniform(150, 250, t).astype(np.float32),
+            "ph_token": rng.integers(1, 20, tt),
+            "ep_pitches": rng.integers(40, 80, tt),
+            "ep_notedurs": rng.uniform(0.1, 0.6, tt).astype(np.float32),
+            "ep_types": np.ones(tt, np.int64),
+            "spk_embed": rng.standard_normal(256).astype(np.float32),
+            "emo_embed": rng.standard_normal(256).astype(np.float32)})
+    ds = StyleSingerDataset(cfg, "train", items=items)
+    batch = collate_batch([ds[i] for i in range(4)], cfg["frame_buckets"],
+                          cfg["token_buckets"])
+    phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
+    cpu = ts.init_state(StyleSinger(cfg, 20), cfg)
+    model = StyleSinger(cfg, 20)
+    model.load_state_dict(cpu.model.state_dict())
+    gpu = ts.TrainState(model.to(cuda), ts.Optimizer(
+        dict(model.named_parameters()), cfg))
+    m_cpu = ts.train_step(cpu, ts.batch_to_device(batch, "cpu"), phase, cfg,
+                          noise={s: Noise(i, "cpu")
+                                 for i, s in enumerate(ts.STREAMS)})
+    m_gpu = ts.train_step(gpu, ts.batch_to_device(batch, cuda), phase, cfg,
+                          noise={s: _CpuDraws(Noise(i, "cpu"), cuda)
+                                 for i, s in enumerate(ts.STREAMS)})
+    assert set(m_gpu) == set(m_cpu)
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-3 * max(1.0,
+                                                              abs(v.item()))
+    grads = {k: p.grad for k, p in cpu.model.named_parameters()}
+    g_max = max(g.abs().max().item() for g in grads.values()
+                if g is not None)
+    for k, p in gpu.model.named_parameters():
+        if grads[k] is None:
+            assert p.grad is None or not p.grad.any(), k
+            continue
+        tol = 1e-3 * grads[k].abs().max().item() + 1e-6 * g_max
+        assert (p.grad.cpu() - grads[k]).abs().max().item() <= tol, k
+    ref = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if ".codebook_" in k:
+            assert (v.cpu() - ref[k]).abs().max().item() <= 1e-5, k

@@ -39,7 +39,16 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.models.stylesinger",
                      "stylesinger_torch.run",
                      "stylesinger_torch.vocoder_infer",
-                     "stylesinger_torch.dsp.denoise"):
+                     "stylesinger_torch.dsp.denoise",
+                     "stylesinger_torch.dsp.align",
+                     "stylesinger_torch.data.batching",
+                     "stylesinger_torch.data.dataset",
+                     "stylesinger_torch.data.indexed_dataset",
+                     "stylesinger_torch.training.checkpoint",
+                     "stylesinger_torch.training.losses",
+                     "stylesinger_torch.training.schedules",
+                     "stylesinger_torch.training.step",
+                     "stylesinger_torch.training.trainer"):
         assert expected in names
 
 

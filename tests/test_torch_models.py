@@ -122,13 +122,14 @@ def test_style_adaptor_and_prosody_aligner():
                                wn_layers=2, conv_dilations=(1, 2))
     lv = random_variables(lsa.init, {"params": jax.random.PRNGKey(0)},
                           jnp.asarray(mels), jnp.asarray(f0), seed=8)
-    ref, _, ref_codes = jax.jit(lsa.apply)(lv, jnp.asarray(mels),
-                                           jnp.asarray(f0))
+    ref, ref_loss, ref_codes = jax.jit(lsa.apply)(lv, jnp.asarray(mels),
+                                                  jnp.asarray(f0))
     port = _load(ts.LocalStyleAdaptor(H, n_codes=8, rq_depth=2, mel_bins=16,
                                       wn_layers=2, conv_dilations=(1, 2)), lv)
-    ours, codes = port(torch.as_tensor(mels), torch.as_tensor(f0))
+    ours, loss, codes = port(torch.as_tensor(mels), torch.as_tensor(f0))
     np.testing.assert_array_equal(to_np(codes), np.asarray(ref_codes))
     _close(ours, ref)
+    _close(loss, ref_loss)
 
     src = _rng(9).standard_normal((2, 12, H)).astype(np.float32)
     style = _rng(10).standard_normal((2, 20, H)).astype(np.float32)

@@ -4,21 +4,29 @@
   by tracing its init (``jax.eval_shape``, no compile), as the JAX
   package's training-path init would create them.
 - :func:`stash_draws`, :func:`sampler_keys`, :func:`gm_dual_draws`,
-  :func:`shallow_draws`, :func:`prodiff_draws`: collect the normal/uniform
-  draws a JAX function makes, in order: directly where they are made
-  outside ``lax.scan``, and by replaying the samplers' key splits for the
-  draws inside their scans.
+  :func:`shallow_draws`, :func:`prodiff_draws`: collect the normal,
+  uniform, randint and bernoulli draws a JAX function makes, in order (per
+  PRNG stream when asked): directly where they are made outside
+  ``lax.scan``, and by replaying the samplers' key splits for the draws
+  inside their scans.
 - :class:`Replay`: hands those draws to the port in the same order, so
   both sides see the same noise.
+- :func:`no_dropout`: every flax ``nn.Dropout`` the identity, as if each
+  rate were 0.
+- :func:`one_torch_thread`: a module fixture that runs torch on one
+  intra-op thread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -62,28 +70,68 @@ def _sync_ema(tree) -> None:
                 _sync_ema(v)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for a module's tests: on the tiny
+    models it is as fast, and the suite's parallel workers then do not
+    oversubscribe the cores.  Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# the PRNG stream of a draw, by the file that makes it: flax's Dropout,
+# and the JAX package's UMLN, RQ and diffusion modules
+_STREAM_OF_FILE = {"stochastic.py": "dropout", "umln.py": "umln",
+                   "rq.py": "rq", "diffusion.py": "diffusion"}
+_KINDS = {"normal": "n", "uniform": "u", "randint": "i", "bernoulli": "b"}
+
+
 @contextlib.contextmanager
-def stash_draws(draws: list):
-    """Append every ``jax.random.normal``/``uniform`` output to ``draws``
-    as (kind, value) while active.  Under ``jax.jit`` the values are
-    tracers: return them from the jitted function."""
-    normal, uniform = jax.random.normal, jax.random.uniform
+def stash_draws(draws):
+    """Record every ``jax.random`` normal, uniform, randint and bernoulli
+    output as (kind, value) while active: appended to ``draws`` when it is
+    a list; when it is a dict, appended to ``draws[stream]``, the stream
+    named after the file that drew (``dropout``, ``umln``, ``rq``,
+    ``diffusion``).  Under ``jax.jit`` the values are tracers: return them
+    from the jitted function."""
+    saved = {name: getattr(jax.random, name) for name in _KINDS}
 
-    def rec_normal(key, shape=(), dtype=np.float32, *a, **k):
-        out = normal(key, shape, dtype, *a, **k)
-        draws.append(("n", out))
-        return out
+    def recorder(name):
+        fn = saved[name]
 
-    def rec_uniform(key, shape=(), dtype=np.float32, *a, **k):
-        out = uniform(key, shape, dtype, *a, **k)
-        draws.append(("u", out))
-        return out
+        def rec(*a, **k):
+            out = fn(*a, **k)
+            if isinstance(draws, dict):
+                caller = os.path.basename(sys._getframe(1).f_code.co_filename)
+                draws.setdefault(_STREAM_OF_FILE[caller], []).append(
+                    (_KINDS[name], out))
+            else:
+                draws.append((_KINDS[name], out))
+            return out
+        return rec
 
-    jax.random.normal, jax.random.uniform = rec_normal, rec_uniform
+    for name in _KINDS:
+        setattr(jax.random, name, recorder(name))
     try:
         yield draws
     finally:
-        jax.random.normal, jax.random.uniform = normal, uniform
+        for name, fn in saved.items():
+            setattr(jax.random, name, fn)
+
+
+@contextlib.contextmanager
+def no_dropout():
+    """Every flax ``nn.Dropout`` returns its input while active."""
+    import flax.linen as nn
+
+    call = nn.Dropout.__call__
+    nn.Dropout.__call__ = lambda self, inputs, *a, **k: inputs
+    try:
+        yield
+    finally:
+        nn.Dropout.__call__ = call
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
@@ -215,6 +263,12 @@ class Replay:
 
     def uniform(self, shape):
         return self._next("u", shape)
+
+    def randint(self, shape, low, high):
+        return self._next("i", shape).long()
+
+    def bernoulli(self, p, shape=()):
+        return self._next("b", shape)
 
 
 def to_np(x) -> np.ndarray:
