@@ -56,7 +56,29 @@ Phases, each printed on its own line with its elapsed seconds:
      ``torch.cuda.synchronize()`` calls), steps/s after the first step,
      the peak memory and one eval step's time, and it launches neither
      kernel;
-5. device time per call of each kernel and its twin at the shapes of
+5. training the vocoder GAN on the card:
+   - ``small vocoder gan step``: one discriminator + generator iteration of
+     the tiny GAN on the card against the CPU (same weights, batch and
+     draws, TF32 off): every loss within 1e-5, each gradient and updated
+     parameter within the CPU tests' tolerances, 27 MRF launches in the
+     discriminator step and none in the generator step;
+   - ``vocoder gan``: ``fit_vocoder`` at the flagship vocoder's width
+     (``load_config()``: NSF HiFi-GAN 512 -> 32 channels, 8·8·2·2,
+     ``mrf_block`` 2048, f32, MPD + MSD, AdamW) on 16 x 64-frame crops of
+     8 seeded harmonic items and their ``wav2spec`` mels: 6 iterations on
+     host crops (1 warm-up, 5 warm), then 2 through the device loop; each
+     step's time and MRF launches (27 per discriminator step, 0 per
+     generator step), iterations/s, peak memory; then an exact restore of
+     the saved state, the saved ``generator.pt`` through ``HifiGAN_NSF``'s
+     ``vocoder_ckpt`` (the trainer's weights, its ``spec2wav`` of a
+     512-frame item equal to the trainer's generator, 27 MRF launches), one
+     iteration from the restored state against the unbroken one, the
+     discriminator step's generator pass on one crop batch on the MRF
+     kernel against the "blocks" route (1e-4 of max|y|), and the
+     resynthesis mel L1 through ``wav2spec`` (the mel kernel, held against
+     its plain twin on both wavs), finite, with no gate on random-start
+     weights;
+6. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
@@ -596,9 +618,10 @@ def breakdown(t0, torch, infer, req, label="breakdown request 0"):
 
     batch, t_pre = timed(lambda: infer.preprocess_input(req))
     noise = Noise(infer.cfg["seed"], infer.device)
-    ret, t_model = timed(lambda: infer.model(**batch, noise=noise))
-    _, t_voc = timed(lambda: infer.vocoder(ret["mel_out"], ret["f0_denorm"],
-                                           noise))
+    with torch.no_grad():  # inference, as infer_once runs it
+        ret, t_model = timed(lambda: infer.model(**batch, noise=noise))
+        _, t_voc = timed(lambda: infer.vocoder(ret["mel_out"],
+                                               ret["f0_denorm"], noise))
     say(label, t0, preprocess_s=f"{t_pre:.3f}",
         acoustic_s=f"{t_model:.3f}", vocoder_s=f"{t_voc:.3f}")
 
@@ -743,10 +766,11 @@ def phase_small(t0, torch, np, wav_np):
                       generator=torch.Generator().manual_seed(SEED))
     f0 = torch.full((1, 40), 220.0)
     rec = _Recorder(SEED)
-    ref = cpu(mel, f0, rec)
-    for ctr in counters().values():
-        ctr.reset()
-    out = gpu(mel.cuda(), f0.cuda(), _Replay(rec.draws, "cuda")).cpu()
+    with torch.no_grad():
+        ref = cpu(mel, f0, rec)
+        for ctr in counters().values():
+            ctr.reset()
+        out = gpu(mel.cuda(), f0.cuda(), _Replay(rec.draws, "cuda")).cpu()
     err = float((out - ref).abs().max())
     say("small reach>64 generator", t0, reach=10 * 7,
         mrf_routes=gpu.mrf_routes(40), wav_err=f"{err:.2e}", tol="1e-5",
@@ -993,6 +1017,415 @@ def phase_train_recipe(t0, torch, np):
             f"{launches}")
 
 
+def _gan_check(torch, np, cpu, gpu, grads, lr):
+    """Gradients and updated parameters of one GAN iteration, the card
+    against the CPU: the worst gradient error over its tolerance (2e-3
+    relative + 2e-4 x max|g_leaf| + 1e-7 x max|g|) and the worst parameter
+    error where the CPU gradient is >= 1e-6, over 0.05 x lr."""
+    from stylesinger_torch.training import vocoder_task as vt
+
+    names = {"disc": list(cpu.named_disc_params()),
+             "gen": [n for n, _ in cpu.gen.named_parameters()]}
+    worst_g = worst_p = 0.0
+    for side, (st_c, st_g) in (("disc", (cpu.disc_params(),
+                                         gpu.disc_params())),
+                               ("gen", (list(cpu.gen.parameters()),
+                                        list(gpu.gen.parameters())))):
+        g_cpu, g_gpu = grads["cpu"][side], grads["gpu"][side]
+        g_max = max(float(g.abs().max()) for g in g_cpu)
+        for n, a, b, pc, pg in zip(names[side], g_cpu, g_gpu, st_c, st_g):
+            tol = 2e-3 * a.abs() + 2e-4 * a.abs().max() + 1e-7 * g_max
+            worst_g = max(worst_g, float(((b - a).abs() / tol).max()))
+            steady = a.abs() >= 1e-6
+            if steady.any():
+                diff = (pg.detach().cpu() - pc.detach()).abs()[steady]
+                worst_p = max(worst_p, float(diff.max()) / (0.05 * lr))
+    return worst_g, worst_p
+
+
+def _recording_opt(opt, seen, side):
+    step = opt.step
+
+    def rec(params, g):
+        seen[side] = [x.detach().cpu().clone() for x in g]
+        step(params, g)
+    opt.step = rec
+
+
+def phase_vocoder_gan_small(t0, torch, np):
+    """One discriminator + generator iteration of the tiny vocoder GAN on
+    the card against the CPU (same weights, batch and draws, TF32 off)."""
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.training import vocoder_task as vt
+
+    cfg = tiny_test_config(hop_size=64, fft_size=256, win_size=256,
+                           fmax=8000, audio_sample_rate=16000, mrf_block=64)
+    rng = np.random.default_rng(SEED)
+    f0 = rng.uniform(150, 250, (2, 16)).astype(np.float32)
+    f0[:, -3:] = 0.0
+    batch = {"mels": rng.standard_normal((2, 16, 16)).astype(np.float32),
+             "f0": f0,
+             "wav": (0.3 * rng.standard_normal((2, 1024))).astype(
+                 np.float32)}
+    cpu = vt.init_vocoder_state(cfg, SEED, "cpu")
+    gpu = vt.init_vocoder_state(cfg, SEED, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    grads = {"cpu": {}, "gpu": {}}
+    for name, st in (("cpu", cpu), ("gpu", gpu)):
+        _recording_opt(st.disc_opt, grads[name], "disc")
+        _recording_opt(st.gen_opt, grads[name], "gen")
+    disc_step, gen_step = vt.make_vocoder_bodies(cfg)
+    rec = [_Recorder(SEED), _Recorder(SEED)]
+    b_cpu = vt.batch_to_device(batch, "cpu")
+    m_cpu = disc_step(cpu, b_cpu, rec[0])
+    m_cpu.update(gen_step(cpu, b_cpu, rec[1]))
+    b_gpu = vt.batch_to_device(batch, "cuda")
+    for ctr in counters().values():
+        ctr.reset()
+    m_gpu = disc_step(gpu, b_gpu, _Replay(rec[0].draws, "cuda"))
+    disc_launches = counters()["fused_mrf_blocks"].count
+    m_gpu.update(gen_step(gpu, b_gpu, _Replay(rec[1].draws, "cuda")))
+    gen_launches = counters()["fused_mrf_blocks"].count - disc_launches
+    torch.cuda.synchronize()
+    errs = {k: abs(float(m_gpu[k]) - float(v)) / max(1.0, abs(float(v)))
+            for k, v in m_cpu.items()}
+    worst_g, worst_p = _gan_check(torch, np, cpu, gpu, grads,
+                                  cfg["vocoder_lr"])
+    say("small vocoder gan step", t0, losses=len(m_cpu),
+        worst_loss_err=f"{max(errs.values()):.2e}", tol="1e-5",
+        worst_grad_err_over_tol=f"{worst_g:.3f}",
+        worst_param_err_over_tol=f"{worst_p:.3f}",
+        mrf_launches_disc=disc_launches, mrf_launches_gen=gen_launches,
+        mel_launches=counters()["mel_spectrogram"].count)
+    require(set(m_gpu) == set(m_cpu) == {"disc_loss", "adv", "fm",
+                                         "mel_l1", "gen_loss"},
+            f"small vocoder gan step: metrics {sorted(m_gpu)}")
+    require(all(e <= 1e-5 for e in errs.values()),
+            f"small vocoder gan step: losses differ {errs}")
+    require(worst_g <= 1.0 and worst_p <= 1.0,
+            f"small vocoder gan step: gradients {worst_g:.2f} / parameters "
+            f"{worst_p:.2f} x their tolerance")
+    require(disc_launches == 27 and gen_launches == 0,
+            f"small vocoder gan step: MRF launches {disc_launches} in the "
+            f"disc step, {gen_launches} in the gen step (expected 27, 0)")
+
+
+def harmonic_corpus(np, torch, cfg, n, frames, seed):
+    """Seeded singing-like items: a harmonic tone with vibrato and an
+    f0 glide per item, its frame f0 and its ``wav2spec`` mel (the mel
+    kernel on the card)."""
+    from stylesinger_torch.dsp.mel import wav2spec
+
+    sr, hop = cfg["audio_sample_rate"], cfg["hop_size"]
+    rng = np.random.default_rng(seed)
+    items = []
+    for _ in range(n):
+        t_frames = int(rng.integers(*frames))
+        t = np.arange(t_frames * hop) / sr
+        base = rng.uniform(150.0, 450.0) * 2 ** (
+            rng.uniform(-2, 2) / 12 * t / t[-1])
+        f0 = base * (1 + 0.02 * np.sin(2 * np.pi * 5.5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        amps = rng.uniform(0.2, 1.0, 8) / np.arange(1, 9)
+        wav = sum(a * np.sin((h + 1) * phase) for h, a in enumerate(amps))
+        env = np.minimum(1.0, np.minimum(t, t[-1] - t) / 0.05)
+        wav = (0.3 * wav * env / np.abs(wav).max()).astype(np.float32)
+        spec = wav2spec(wav, torch.device("cuda"), sample_rate=sr,
+                        n_fft=cfg["fft_size"], hop_size=hop,
+                        win_length=cfg["win_size"],
+                        n_mels=cfg["audio_num_mel_bins"], fmin=cfg["fmin"],
+                        fmax=cfg["fmax"])
+        items.append({"mel": spec["mel"][:t_frames].cpu().numpy(),
+                      "wav": wav, "f0": f0[::hop].astype(np.float32)})
+    return items
+
+
+def gan_iteration_flop(torch, state, batch, noise):
+    """FLOP of one GAN iteration, from the shapes of its forward passes
+    (``torch.utils.flop_counter``), a backward counted as twice its
+    forward (weights and inputs): G, the generator on the resblock modules
+    (a gradient is recorded, so the counter sees every conv), and D, MPD +
+    MSD on one batch.  The discriminator step is G + 6 D (D forward on real
+    and fake, then backward), the generator step 3 G + 3 D (D on real
+    without a gradient, D on fake forward and backward to its input)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        state.gen(batch["mels"], batch["f0"], noise)
+    g = fc.get_total_flops()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        state.mpd(batch["wav"])
+        state.msd(batch["wav"])
+    d = fc.get_total_flops()
+    return g + 6 * d, 3 * g + 3 * d
+
+
+def phase_vocoder_gan(t0, torch, np):
+    """The vocoder GAN at the flagship width: ``fit_vocoder`` 6 iterations
+    on the host crops (1 warm-up + 5 warm), 2 more through the device loop
+    (``spd`` 2), then an exact restore, ``HifiGAN_NSF`` on the saved
+    ``vocoder_ckpt``, one iteration from the restored state against the
+    unbroken state, the discriminator step's generator pass at the path's
+    shapes on the MRF kernel against the "blocks" route, and the
+    resynthesis mel L1 through ``wav2spec``, its mel kernel against the
+    plain twin."""
+    import tempfile
+
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.dsp.mel import wav2spec
+    from stylesinger_torch.kernels import mel as melk
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.training import vocoder_task as vt
+    from stylesinger_torch.training.checkpoint import load_payload
+    from stylesinger_torch.vocoder_infer import HifiGAN_NSF
+
+    cfg = load_config()
+    batch, crop, host_steps, scan_steps = 16, 64, 6, 2
+    items = harmonic_corpus(np, torch, cfg, 8, (128, 321), SEED)
+    held_out = harmonic_corpus(np, torch, cfg, 1, (512, 513), SEED + 1)[0]
+    log = []
+    make_steps, make_scan = vt.make_vocoder_steps, vt.make_vocoder_scan
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = counters()["fused_mrf_blocks"].count
+            tb = time.perf_counter()
+            m = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((kind, 1e3 * (time.perf_counter() - tb),
+                        counters()["fused_mrf_blocks"].count - before, m))
+            return m
+        return run
+
+    def timed_steps(cfg, seed=0):
+        gen_step, disc_step = make_steps(cfg, seed)
+        return timed("gen", gen_step), timed("disc", disc_step)
+
+    def timed_scan(cfg):
+        return timed("scan", make_scan(cfg))
+
+    def say_fit(msg):
+        say("vocoder gan fit", t0, log=repr(msg))
+
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.TemporaryDirectory(prefix=".vocoder_smoke_",
+                                       dir=str(REPO))
+    vt.make_vocoder_steps, vt.make_vocoder_scan = timed_steps, timed_scan
+    try:
+        state, hist = vt.fit_vocoder(cfg, items, host_steps, work.name,
+                                     batch=batch, crop_frames=crop,
+                                     device="cuda", seed=SEED, log=say_fit)
+        host_launches = {k: c.count for k, c in counters().items()}
+        state, hist2 = vt.fit_vocoder(cfg, items, host_steps + scan_steps,
+                                      work.name, batch=batch,
+                                      crop_frames=crop, spd=scan_steps,
+                                      device="cuda", seed=SEED, log=say_fit)
+        vt.make_vocoder_steps, vt.make_vocoder_scan = make_steps, make_scan
+        launches = {k: c.count for k, c in counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+
+        # an exact restore of the saved state
+        restored = vt.init_vocoder_state(cfg, 0, "cuda")
+        restored.load_state_dict(load_payload(
+            str(Path(work.name) / vt.GAN_STATE_FILE), "cuda"))
+        a, b = state.state_dict(), restored.state_dict()
+        exact = a["step"] == b["step"] == host_steps + scan_steps and all(
+            torch.equal(v, b[side][k]) for side in ("gen", "mpd", "msd")
+            for k, v in a[side].items()) and all(
+            a[o]["count"] == b[o]["count"] and all(
+                torch.equal(v, b[o][key][k]) for key in ("mu", "nu")
+                for k, v in a[o][key].items())
+            for o in ("gen_opt", "disc_opt"))
+
+        # the saved generator as vocoder_ckpt, against the trainer's
+        voc = HifiGAN_NSF(cfg.replace(vocoder_ckpt=str(
+            Path(work.name) / vt.GENERATOR_FILE)), device="cuda")
+        same_weights = all(torch.equal(v, state.gen.state_dict()[k])
+                           for k, v in voc.model.state_dict().items())
+        mel = held_out["mel"][:512]
+        f0 = held_out["f0"][:512]
+        spec2wav_ms = []
+        for _ in range(2):  # the first call meets these shapes first
+            counters()["fused_mrf_blocks"].reset()
+            torch.cuda.synchronize()
+            tv = time.perf_counter()
+            wav_gen = voc.spec2wav(mel, f0, noise=Noise(SEED, "cuda"))
+            torch.cuda.synchronize()
+            spec2wav_ms.append(1e3 * (time.perf_counter() - tv))
+        voc_launches = counters()["fused_mrf_blocks"].count
+        with torch.no_grad():
+            direct = state.gen(torch.as_tensor(mel, device="cuda")[None],
+                               torch.as_tensor(f0, device="cuda")[None],
+                               Noise(SEED, "cuda"))[0].cpu().numpy()
+        voc_err = float(np.abs(wav_gen - direct).max())
+
+        # one iteration from the restored state and from the unbroken one
+        crops = vt.crop_batch(items[:batch // 2] * 2, cfg,
+                              np.random.default_rng(SEED), crop)
+        b_dev = vt.batch_to_device(crops, "cuda")
+        disc_step, gen_step = vt.make_vocoder_bodies(cfg)
+        cont = []
+        for st in (state, restored):
+            m = disc_step(st, b_dev, vt.vocoder_noise(SEED, st.step, "cuda",
+                                                      "noise"))
+            m.update(gen_step(st, b_dev, vt.vocoder_noise(
+                SEED, st.step, "cuda", "noise")))
+            cont.append(m)
+        # relative, as the small step's: a backward that sums in another
+        # order from run to run moves a loss of ~100 by its f32 spacing
+        cont_loss_err = max(abs(float(cont[0][k]) - float(cont[1][k])) /
+                            max(1.0, abs(float(cont[0][k])))
+                            for k in cont[0])
+        flop_disc, flop_gen = gan_iteration_flop(
+            torch, state, b_dev, vt.vocoder_noise(SEED, 0, "cuda", "noise"))
+        cont_param_err = max(
+            float((p - q).detach().abs().max()) for p, q in zip(
+                list(state.gen.parameters()) + state.disc_params(),
+                list(restored.gen.parameters()) + restored.disc_params()))
+
+        # the discriminator step's generator pass at the path's own shapes
+        # (16 x 64-frame crops: fewer blocks than SMs): the MRF kernel
+        # against the "blocks" route that autograd takes, on the same
+        # crops and noise
+        mrf_ctr = counters()["fused_mrf_blocks"]
+        before = mrf_ctr.count
+        def disc_pass():
+            return state.gen(b_dev["mels"], b_dev["f0"], vt.vocoder_noise(
+                SEED, state.step, "cuda", "noise"))
+        with torch.no_grad():
+            fake_kernel = disc_pass()
+        pass_launches = mrf_ctr.count - before
+        fake_blocks = disc_pass().detach()
+        blocks_launches = mrf_ctr.count - before - pass_launches
+        pass_scale = float(fake_blocks.abs().max())
+        pass_err = float((fake_kernel - fake_blocks).abs().max())
+        pass_blocks = [b_dev["mels"].shape[0] * crop * int(np.prod(
+            cfg["upsample_rates"][:i + 1])) // cfg["mrf_block"]
+            for i, r in enumerate(state.gen.mrf_routes(crop)) if r == "kernel"]
+        del fake_kernel, fake_blocks
+    finally:
+        vt.make_vocoder_steps, vt.make_vocoder_scan = make_steps, make_scan
+        work.cleanup()
+
+    # the resynthesis mel L1 through wav2spec (the mel kernel)
+    counters()["mel_spectrogram"].reset()
+    kw = dict(sample_rate=cfg["audio_sample_rate"], n_fft=cfg["fft_size"],
+              hop_size=cfg["hop_size"], win_length=cfg["win_size"],
+              n_mels=cfg["audio_num_mel_bins"], fmin=cfg["fmin"],
+              fmax=cfg["fmax"])
+    dev = torch.device("cuda")
+    mg = wav2spec(wav_gen, dev, **kw)["mel"]
+    mr = wav2spec(held_out["wav"][: 512 * cfg["hop_size"]], dev, **kw)["mel"]
+    n = min(mg.shape[0], mr.shape[0])
+    mel_l1 = float((mg[:n] - mr[:n]).abs().mean())
+    resynth_mel_launches = counters()["mel_spectrogram"].count
+    # the mel kernel against its plain twin on the same two wavs
+    consts = melk._constants(cfg["audio_sample_rate"], cfg["fft_size"],
+                             cfg["win_size"], cfg["audio_num_mel_bins"],
+                             cfg["fmin"], cfg["fmax"], dev)
+    resynth_mel_err, resynth_mel_ok = 0.0, True
+    for w, out in ((wav_gen, mg),
+                   (held_out["wav"][: 512 * cfg["hop_size"]], mr)):
+        ref = melk.mel_spectrogram_plain(
+            torch.as_tensor(np.asarray(w, np.float32), device=dev), *consts,
+            cfg["hop_size"], 1e-6)
+        resynth_mel_ok &= out.shape == ref.shape and bool(
+            torch.allclose(out, ref, **MEL_TOL))
+        resynth_mel_err = max(resynth_mel_err, float((out - ref).abs().max()))
+
+    for i, (kind, ms, mrf, m) in enumerate(log):
+        label = (f"{kind} step {i // 2}" if kind != "scan" else
+                 f"scan steps {host_steps}-{host_steps + scan_steps - 1}")
+        say(f"vocoder gan {label}", t0, ms=f"{ms:.1f}",
+            mrf_launches=mrf, **{k: f"{float(v.float().mean()):.4f}"
+                                 for k, v in m.items()})
+    disc = [e for e in log if e[0] == "disc"]
+    gen = [e for e in log if e[0] == "gen"]
+    scan = [e for e in log if e[0] == "scan"]
+    warm_d = sorted(e[1] for e in disc[1:])
+    warm_g = sorted(e[1] for e in gen[1:])
+    warm_iter_ms = sum(warm_d) + sum(warm_g)
+    iter_bound, by = bound_ms(flop_disc + flop_gen, 0.0)
+    warm_median_iter_ms = np.median(warm_d) + np.median(warm_g)
+    n_gen = sum(p.numel() for p in state.gen.parameters())
+    n_disc = sum(p.numel() for p in state.disc_params())
+    losses = [float(v) for m in hist + hist2 + cont for v in m.values()]
+    say("vocoder gan", t0, gen_params=n_gen, disc_params=n_disc,
+        batch=batch, crop_frames=crop, crop_samples=crop * cfg["hop_size"],
+        mrf_routes_disc=state.gen.mrf_routes(crop),
+        mrf_routes_gen=state.gen.mrf_routes(crop, grad=True),
+        disc_first_ms=f"{disc[0][1]:.1f}", gen_first_ms=f"{gen[0][1]:.1f}",
+        disc_warm_median_ms=f"{np.median(warm_d):.1f}",
+        disc_warm_min_max_ms=f"{warm_d[0]:.1f}/{warm_d[-1]:.1f}",
+        gen_warm_median_ms=f"{np.median(warm_g):.1f}",
+        gen_warm_min_max_ms=f"{warm_g[0]:.1f}/{warm_g[-1]:.1f}",
+        iterations_per_s_warm=f"{1e3 * len(warm_d) / warm_iter_ms:.3f}",
+        flop_disc_step=f"{flop_disc:.4e}", flop_gen_step=f"{flop_gen:.4e}",
+        iteration_bound_ms=f"{iter_bound:.1f}", bound_by=by,
+        peak="f32 67e12",
+        share_of_bound=f"{iter_bound / warm_median_iter_ms:.3f}",
+        scan_iterations=len(hist2),
+        scan_ms_per_iteration=f"{scan[0][1] / scan_steps:.1f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.2f}",
+        mrf_launches_per_disc_step=sorted({e[2] for e in disc}),
+        mrf_launches_per_gen_step=sorted({e[2] for e in gen}),
+        mrf_launches_fit=host_launches["fused_mrf_blocks"],
+        mrf_launches_scan=launches["fused_mrf_blocks"] -
+        host_launches["fused_mrf_blocks"],
+        mel_launches_fit=launches["mel_spectrogram"],
+        restore_exact=exact, vocoder_ckpt_same_weights=same_weights,
+        spec2wav_frames=mel.shape[0],
+        spec2wav_first_warm_ms=f"{spec2wav_ms[0]:.1f}/{spec2wav_ms[1]:.1f}",
+        spec2wav_mrf_launches=voc_launches,
+        spec2wav_vs_trainer_err=f"{voc_err:.2e}",
+        continue_loss_err=f"{cont_loss_err:.2e}",
+        continue_param_err=f"{cont_param_err:.2e}",
+        resynth_mel_l1=f"{mel_l1:.4f}",
+        resynth_mel_launches=resynth_mel_launches,
+        resynth_mel_vs_plain_err=f"{resynth_mel_err:.3e}",
+        resynth_mel_tol="atol3e-3/rtol2e-3",
+        disc_pass_kernel_blocks=pass_blocks,
+        disc_pass_kernel_vs_blocks_err=f"{pass_err:.3e}",
+        disc_pass_max_abs_y=f"{pass_scale:.3e}",
+        disc_pass_tol=f"{MRF_REL_TOL:g}*max|y|",
+        timer="host clock, cuda.synchronize")
+    require(len(disc) == len(gen) == host_steps and len(hist) == host_steps
+            and len(hist2) == scan_steps and len(scan) == 1,
+            f"vocoder gan: {len(disc)} / {len(gen)} host steps and "
+            f"{len(hist2)} loop steps")
+    require(all(e[2] == 27 for e in disc) and all(e[2] == 0 for e in gen),
+            "vocoder gan: MRF launches per disc / gen step are not 27 / 0")
+    require(scan[0][2] == 27 * scan_steps and launches["fused_mrf_blocks"]
+            - host_launches["fused_mrf_blocks"] == 27 * scan_steps,
+            "vocoder gan: the device loop's disc steps did not launch the "
+            "MRF kernel 27 times each")
+    require(launches["mel_spectrogram"] == 0,
+            "vocoder gan: the mel kernel ran on the training path")
+    require(all(np.isfinite(v) for v in losses),
+            "vocoder gan: a non-finite loss")
+    require(exact, "vocoder gan: the restore does not equal the saved state")
+    require(same_weights and voc_err <= 1e-6 and voc_launches == 27,
+            f"vocoder gan: HifiGAN_NSF on the saved vocoder_ckpt differs "
+            f"({voc_err:.2e}, {voc_launches} MRF launches)")
+    require(cont_loss_err <= 1e-5 and
+            cont_param_err <= 0.05 * cfg["vocoder_lr"],
+            f"vocoder gan: the restored state's next iteration differs "
+            f"(loss {cont_loss_err:.2e}, parameters {cont_param_err:.2e})")
+    require(np.isfinite(mel_l1) and resynth_mel_launches == 2,
+            f"vocoder gan: resynthesis mel L1 {mel_l1}")
+    require(resynth_mel_ok, f"vocoder gan: the mel kernel disagrees with its "
+            f"plain twin on the resynthesis wavs ({resynth_mel_err:.3e})")
+    require(pass_launches == 27 and blocks_launches == 0 and
+            pass_err <= MRF_REL_TOL * pass_scale,
+            f"vocoder gan: the disc step's generator pass on the MRF kernel "
+            f"({pass_launches} launches) differs from the blocks route "
+            f"({blocks_launches} launches) by {pass_err:.3e} of max|y| "
+            f"{pass_scale:.3e}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not (REPO / "stylesinger_torch" / "csrc").is_dir():
@@ -1024,6 +1457,8 @@ def main() -> int:
         phase_small(t0, torch, np, wav_np)
         phase_train_small(t0, torch, np)
         phase_train_recipe(t0, torch, np)
+        phase_vocoder_gan_small(t0, torch, np)
+        phase_vocoder_gan(t0, torch, np)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

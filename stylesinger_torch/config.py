@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
 ported modules read (model, training, data), ``apply_spec_stats`` and
-``tiny_test_config``.  No YAML
+``tiny_test_config``, and ``VOCODER_TRAINING``, the vocoder task's keys
+that the JAX package reads with ``cfg.get``.  No YAML
 reader is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for
 each recipe of ``egs/``, the keys the port reads where the recipe and its
 bases differ from the defaults, and ``load_config(recipe=..., **overrides)``
@@ -164,6 +165,8 @@ DEFAULTS: Dict[str, Any] = dict(
     vocoder_compute_dtype="float32",
     # > 0: spectral-subtraction denoise of the vocoder's output
     vocoder_denoise_c=0.0,
+    # trained generator weights (vocoder_infer.py::load_vocoder_state_dict)
+    vocoder_ckpt="",
     # --- dropout (egs/egs_bases/tts/base.yaml, fs2.yaml) ---
     dropout=0.1,
     predictor_dropout=0.5,
@@ -214,6 +217,21 @@ DEFAULTS: Dict[str, Any] = dict(
 )
 
 
+# Vocoder GAN training (training/vocoder_task.py): keys the JAX package's
+# config does not hold and its vocoder task reads with ``cfg.get`` and these
+# defaults (``training/vocoder_task.py:62-68,82-87``);
+# tests/test_torch_config.py holds them against those defaults.
+VOCODER_TRAINING: Dict[str, Any] = dict(
+    vocoder_lr=2e-4,
+    vocoder_adam_b1=0.8,
+    vocoder_adam_b2=0.99,
+    vocoder_optimizer="adamw",  # adamw | radam
+    lambda_fm=2.0,
+    lambda_mel=45.0,
+    lambda_ms_stft=0.0,
+)
+
+
 # The keys the port reads where a recipe of ``egs/`` (with its bases)
 # differs from DEFAULTS; tests/test_torch_config.py holds each against the
 # JAX package's ``load_config("egs/<name>.yaml")``.
@@ -224,10 +242,10 @@ RECIPES: Dict[str, Dict[str, Any]] = {
 
 
 def load_config(recipe: Optional[str] = None, **kwargs: Any) -> Config:
-    """Defaults <- ``RECIPES[recipe]`` <- keyword overrides.  The config
-    defaults are ``load_config()``; the repo's recipe is
+    """Defaults (``DEFAULTS`` and ``VOCODER_TRAINING``) <-
+    ``RECIPES[recipe]`` <- keyword overrides.  The config defaults are ``load_config()``; the repo's recipe is
     ``load_config(recipe="stylesinger")``."""
-    cfg = Config(json.loads(json.dumps(DEFAULTS)))  # deep copy
+    cfg = Config(json.loads(json.dumps({**DEFAULTS, **VOCODER_TRAINING})))
     if recipe is not None:
         if recipe not in RECIPES:
             raise KeyError(f"unknown recipe {recipe!r}; known: "

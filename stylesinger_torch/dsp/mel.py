@@ -3,12 +3,14 @@
 Centered STFT with **zero** center padding (``torch.stft`` would pad with
 reflect), periodic Hann window, Slaney mel filterbank and
 ``log10(max(eps, mel))``.  :func:`wav2mel` goes through the mel kernel
-(``kernels/mel.py``) on a CUDA tensor and its plain twin on a CPU tensor.
+(``kernels/mel.py``) on a CUDA tensor and its plain twin on a CPU tensor;
+:func:`wav2mel_batch` is the differentiable form that training losses take.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +88,38 @@ def wav2mel(wav: torch.Tensor, *, sample_rate: int = 48000,
     return mel_spectrogram(wav, sample_rate=sample_rate, n_fft=n_fft,
                            hop_size=hop_size, win_length=win_length,
                            n_mels=n_mels, fmin=fmin, fmax=fmax, eps=eps)
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_tables(sample_rate: int, n_fft: int, win_length: int, n_mels: int,
+                fmin: float, fmax: float, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(window [n_fft], filterbank transposed [1 + n_fft // 2, n_mels]) on
+    ``device``, both f32, the window centred in the frame."""
+    window = _hann_periodic(win_length)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    basis = mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax)
+    return (torch.as_tensor(window, device=device),
+            torch.as_tensor(np.ascontiguousarray(basis.T), device=device))
+
+
+def wav2mel_batch(wav: torch.Tensor, *, sample_rate: int = 48000,
+                  n_fft: int = 1024, hop_size: int = 256,
+                  win_length: int = 1024, n_mels: int = 80,
+                  fmin: float = 20.0, fmax: float = 24000.0,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable log10-mel of wav [..., T] -> [..., 1 + T // hop_size,
+    n_mels], from autograd ops in f32 (framing, ``torch.fft.rfft``, |.|,
+    the filterbank, log10): the counterpart of the JAX package's
+    ``dsp/mel.py::wav2mel``, which vocoder training differentiates.  The mel
+    kernel has no backward, so losses take this and not :func:`wav2mel`."""
+    window, basis_t = _mel_tables(sample_rate, n_fft, win_length, n_mels,
+                                  float(fmin), float(fmax), wav.device)
+    frames = frame_signal(wav, n_fft, hop_size)
+    mag = torch.fft.rfft(frames * window, n=n_fft, dim=-1).abs()
+    return torch.log10(torch.clamp_min(mag @ basis_t, eps))
 
 
 def pad_wav_to_frames(wav: np.ndarray, hop_size: int) -> np.ndarray:

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Iterable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -155,6 +155,18 @@ def check(status: int, name: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def refuse_autograd(name: str, tensors: Iterable) -> None:
+    """Raise when autograd is recording and one of ``tensors`` requires
+    grad: a kernel has no backward, so its output would carry no graph and
+    the gradient would be lost without an error."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call "
+                           "it under torch.no_grad(), or take the "
+                           "differentiable path for a loss")
 
 
 class LaunchCounter:

@@ -24,7 +24,9 @@ import torch
 from stylesinger_torch.dsp.mel import (
     _hann_periodic, frame_signal, mel_filterbank,
 )
-from stylesinger_torch.kernels._build import LaunchCounter, check, library
+from stylesinger_torch.kernels._build import (
+    LaunchCounter, check, library, refuse_autograd,
+)
 
 counter = LaunchCounter()
 MAX_N_FFT = 4096  # powers of two take the FFT, other sizes the direct DFT
@@ -88,7 +90,10 @@ def mel_spectrogram(wav: torch.Tensor, *, sample_rate: int = 48000,
                     eps: float = 1e-6) -> torch.Tensor:
     """log10-mel of wav [T] -> [1 + T // hop_size, n_mels] (f32).
 
-    CUDA tensor: the ``csrc/mel.cu`` kernel.  CPU tensor: the plain twin.
+    CUDA tensor: the ``csrc/mel.cu`` kernel, which has no backward: it
+    raises while autograd records a ``wav`` that requires grad
+    (``dsp/mel.py::wav2mel_batch`` is the differentiable form).  CPU
+    tensor: the plain twin.
     """
     consts = _constants(sample_rate, n_fft, win_length, n_mels, float(fmin),
                         float(fmax), wav.device)
@@ -96,6 +101,7 @@ def mel_spectrogram(wav: torch.Tensor, *, sample_rate: int = 48000,
         return mel_spectrogram_plain(wav, *consts, hop_size, eps)
     if wav.device.type != "cuda":
         raise ValueError(f"mel_spectrogram: unsupported device {wav.device}")
+    refuse_autograd("mel_spectrogram", [wav])
     if wav.dtype != torch.float32 or wav.ndim != 1:
         raise ValueError("mel_spectrogram: wav must be a 1-D float32 tensor, "
                          f"got {wav.dtype} {tuple(wav.shape)}")

@@ -33,7 +33,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from stylesinger_torch.kernels._build import LaunchCounter, check, library
+from stylesinger_torch.kernels._build import (
+    LaunchCounter, check, library, refuse_autograd,
+)
 
 LRELU_SLOPE = 0.1
 BF16_SLOPE = 0.10009765625  # the slope as bf16, as jax.nn.leaky_relu uses it
@@ -350,8 +352,9 @@ def fused_mrf_blocks(xb: torch.Tensor, mask: torch.Tensor, weights: Weights,
     [Nb, block + 2*halo, 1] -> [Nb, block, C] (mean of the resblocks,
     halo-cropped), all in ``compute_dtype`` (f32 or bf16; the weights and
     biases are f32).  CUDA tensor: the ``csrc/mrf.cu`` kernel, one launch
-    per dilation step (:func:`mrf_schedule`).  CPU tensor: the plain twin
-    of that mode."""
+    per dilation step (:func:`mrf_schedule`); it has no backward, so it
+    raises while autograd records a tensor that requires grad.  CPU
+    tensor: the plain twin of that mode."""
     if compute_dtype not in DTYPES:
         raise ValueError(f"fused_mrf_blocks: compute_dtype {compute_dtype} "
                          "is neither float32 nor bfloat16")
@@ -365,6 +368,8 @@ def fused_mrf_blocks(xb: torch.Tensor, mask: torch.Tensor, weights: Weights,
         return plain(xb, mask, weights, **kw)
     if xb.device.type != "cuda":
         raise ValueError(f"fused_mrf_blocks: unsupported device {xb.device}")
+    refuse_autograd("fused_mrf_blocks", [xb, mask] + [
+        t for rb in weights for step in rb for wb in step for t in wb])
     _check_args(xb, mask, weights, kernels, dilations, block, halo,
                 compute_dtype)
     layout = _kernel_layout_bf16 if bf16 else _kernel_layout

@@ -14,6 +14,13 @@ other group runs the resblock modules.  ``resblock: "2"`` always runs the
 modules.  ``vocoder_compute_dtype: bfloat16`` runs every conv in bf16 (the
 MRF kernel in its bf16 mode), with the harmonic source and the final tanh
 in f32, as the JAX generator does.  Batch-first [B, T, C].
+
+The generator trains: under autograd every blocked stage runs the resblock
+modules, since the MRF kernel has no backward.  The discriminators of
+vocoder GAN training (``MultiPeriodDiscriminator``,
+``MultiScaleDiscriminator``) and the LSGAN and feature-matching losses
+follow; they are channel-first inside ([B, C, T] and [B, C, H, p]), with
+flax's SAME padding written out where a stride makes it asymmetric.
 """
 
 from __future__ import annotations
@@ -225,30 +232,34 @@ class HifiGanGenerator(nn.Module):
         self.mrf_halo = max(self.resblock_cls.halo(k, d)
                             for k, d in zip(self.rk, self.rd))
 
-    def mrf_route(self, i: int, t_stage: int) -> str:
+    def mrf_route(self, i: int, t_stage: int, grad: bool = False) -> str:
         """Where stage i's MRF group runs for a stage of ``t_stage``
         samples: "kernel" (the MRF kernel over overlap-save blocks),
         "blocks" (the resblock modules over the same blocks) or "modules"
         (the resblock modules over the whole stage, shorter than two
-        blocks)."""
+        blocks).  ``grad``: autograd records the stage (the kernel has no
+        backward, so such a stage runs "blocks", as JAX's trainer runs XLA
+        convs where the Pallas kernel would have no VJP)."""
         if not (self.mrf_block and t_stage >= 2 * self.mrf_block):
             return "modules"
         c = self.cfg["upsample_initial_channel"] // (2 ** (i + 1))
-        if self.resblock_cls is ResBlock1 and takes_stage(c, self.rk,
-                                                          self.rd):
+        if not grad and self.resblock_cls is ResBlock1 and takes_stage(
+                c, self.rk, self.rd):
             return "kernel"
         return "blocks"
 
-    def mrf_routes(self, n_frames: int):
+    def mrf_routes(self, n_frames: int, grad: bool = False):
         """:meth:`mrf_route` of every stage for a mel of ``n_frames``."""
-        return [self.mrf_route(i, n_frames * int(np.prod(self.rates[:i + 1])))
-                for i in range(len(self.rates))]
+        return [self.mrf_route(i, n_frames * int(np.prod(self.rates[:i + 1])),
+                               grad) for i in range(len(self.rates))]
 
     def _mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
         blocks = [getattr(self, f"resblock_{i}_{j}")
                   for j in range(len(self.rk))]
         block, halo = self.mrf_block, self.mrf_halo
-        route = self.mrf_route(i, x.shape[1])
+        grad = torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for blk in blocks for p in blk.parameters()))
+        route = self.mrf_route(i, x.shape[1], grad)
         if route == "modules":
             return sum(blk(x) for blk in blocks) / len(blocks)
         xb, mask, t = _blockify(x, block, halo)
@@ -264,10 +275,12 @@ class HifiGanGenerator(nn.Module):
             acc = y if acc is None else acc + y
         return _unblockify(acc / len(blocks), x.shape[0], block, halo, t)
 
-    @torch.no_grad()
     def forward(self, mel: torch.Tensor, f0: Optional[torch.Tensor],
                 noise) -> torch.Tensor:
-        """Draws (with NSF): the harmonic source's uniform, then normal."""
+        """Draws (with NSF): the harmonic source's uniform, then normal.
+        Differentiable: under autograd every MRF group runs the resblock
+        modules (:meth:`mrf_route`); inference callers run it under
+        ``torch.no_grad()``."""
         total_up = int(np.prod(self.rates))
         har = None
         if self.use_nsf and f0 is not None:
@@ -285,3 +298,146 @@ class HifiGanGenerator(nn.Module):
             x = self._mrf(i, x)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x.float())[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Discriminators and GAN losses (vocoder training; JAX models/hifigan.py:362-463)
+# ---------------------------------------------------------------------------
+
+def same_padding(n: int, kernel_size: int, stride: int) -> Tuple[int, int]:
+    """flax ``padding="SAME"`` of a length-n axis (output ceil(n / stride)):
+    the total split floor-left, so a strided conv pads one more on the
+    right where the total is odd (k 41, stride 2: 19 | 20)."""
+    total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
+    return total // 2, total - total // 2
+
+
+class PeriodDiscriminator(nn.Module):
+    """One period branch: wav [B, T] reflect-padded to a multiple of the
+    period, folded to [B, 1, T/p, p], then (5, 1) convs.  Returns (score
+    [B, H * p], feature maps [B, C, H_i, p])."""
+
+    CHANNELS = (32, 128, 512, 1024)
+
+    def __init__(self, period: int):
+        super().__init__()
+        self.period = period
+        c_in = 1
+        for i, ch in enumerate(self.CHANNELS):
+            setattr(self, f"conv_{i}", nn.Conv2d(c_in, ch, (5, 1), (3, 1),
+                                                 (2, 0)))
+            c_in = ch
+        self.conv_4 = nn.Conv2d(c_in, 1024, (5, 1), 1, (2, 0))
+        self.conv_post = nn.Conv2d(1024, 1, (3, 1), 1, (1, 0))
+
+    def forward(self, wav: torch.Tensor):
+        b, t = wav.shape
+        p = self.period
+        pad = (p - t % p) % p
+        x = F.pad(wav[:, None], (0, pad), mode="reflect") if pad else \
+            wav[:, None]
+        x = x.reshape(b, 1, -1, p)
+        feats = []
+        for i in range(len(self.CHANNELS) + 1):
+            x = _lrelu(getattr(self, f"conv_{i}")(x))
+            feats.append(x)
+        x = self.conv_post(x)
+        feats.append(x)
+        return x.reshape(b, -1), feats
+
+
+class ScaleDiscriminator(nn.Module):
+    """One scale branch: grouped 1-D convs with flax's SAME padding on wav
+    [B, T].  Returns (score [B, T'], feature maps [B, C, T'])."""
+
+    # (channels, kernel, stride, groups)
+    SPEC = ((128, 15, 1, 1), (128, 41, 2, 4), (256, 41, 2, 16),
+            (512, 41, 4, 16), (1024, 41, 4, 16), (1024, 41, 1, 16),
+            (1024, 5, 1, 1))
+
+    def __init__(self):
+        super().__init__()
+        c_in = 1
+        for i, (ch, k, s, g) in enumerate(self.SPEC):
+            setattr(self, f"conv_{i}", nn.Conv1d(c_in, ch, k, s, groups=g))
+            c_in = ch
+        self.conv_post = nn.Conv1d(c_in, 1, 3)
+
+    @staticmethod
+    def _same(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.pad(x, same_padding(x.shape[-1], conv.kernel_size[0],
+                                          conv.stride[0])))
+
+    def forward(self, wav: torch.Tensor):
+        x = wav[:, None]
+        feats = []
+        for i in range(len(self.SPEC)):
+            x = _lrelu(self._same(getattr(self, f"conv_{i}"), x))
+            feats.append(x)
+        x = self._same(self.conv_post, x)
+        feats.append(x)
+        return x.reshape(wav.shape[0], -1), feats
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+        super().__init__()
+        self.periods = tuple(periods)
+        for p in self.periods:
+            setattr(self, f"period_{p}", PeriodDiscriminator(p))
+
+    def forward(self, wav: torch.Tensor):
+        outs, feats = [], []
+        for p in self.periods:
+            o, f = getattr(self, f"period_{p}")(wav)
+            outs.append(o)
+            feats.append(f)
+        return outs, feats
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Scale i > 0 sees the wav average-pooled (window 4, stride 2) i times,
+    with flax's SAME zeros counted in the mean."""
+
+    def __init__(self, n_scales: int = 3):
+        super().__init__()
+        self.n_scales = n_scales
+        for i in range(n_scales):
+            setattr(self, f"scale_{i}", ScaleDiscriminator())
+
+    def forward(self, wav: torch.Tensor):
+        outs, feats = [], []
+        x = wav
+        for i in range(self.n_scales):
+            if i > 0:
+                x = F.avg_pool1d(F.pad(x[:, None], same_padding(
+                    x.shape[-1], 4, 2)), 4, 2)[:, 0]
+            o, f = getattr(self, f"scale_{i}")(x)
+            outs.append(o)
+            feats.append(f)
+        return outs, feats
+
+
+def discriminator_loss(real_outs, fake_outs) -> torch.Tensor:
+    """LSGAN: sum over branches of mean((D(real) - 1)^2) + mean(D(fake)^2)."""
+    loss = 0.0
+    for dr, dg in zip(real_outs, fake_outs):
+        loss = loss + torch.mean((dr - 1.0) ** 2) + torch.mean(dg ** 2)
+    return loss
+
+
+def generator_adv_loss(fake_outs) -> torch.Tensor:
+    loss = 0.0
+    for dg in fake_outs:
+        loss = loss + torch.mean((dg - 1.0) ** 2)
+    return loss
+
+
+def feature_matching_loss(real_feats, fake_feats) -> torch.Tensor:
+    """2 x the sum of mean |real - fake| over every feature map; no
+    gradient flows into the real side."""
+    loss = 0.0
+    for fr_list, fg_list in zip(real_feats, fake_feats):
+        for fr, fg in zip(fr_list, fg_list):
+            loss = loss + torch.mean(torch.abs(fr.detach() - fg))
+    return loss * 2.0

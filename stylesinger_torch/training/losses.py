@@ -184,14 +184,22 @@ def compute_losses(ret: Dict, batch: Dict, cfg: Any, *, use_rq: bool,
 # Multi-resolution STFT loss (the PWG vocoder's auxiliary loss)
 # ---------------------------------------------------------------------------
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``jnp.pad(x, pad, mode="reflect")`` on the last axis, also where
+    ``pad`` reaches the length T (numpy reflects again, so the index runs
+    as a triangle wave of period 2 (T - 1); ``F.pad`` refuses it)."""
+    t = x.shape[-1]
+    i = torch.remainder(torch.arange(-pad, t + pad, device=x.device),
+                        2 * (t - 1))
+    return x[..., torch.where(i < t, i, 2 * (t - 1) - i)]
+
+
 def _stft_mag_torchlike(x: torch.Tensor, fft_size: int, hop_size: int,
                         win_length: int) -> torch.Tensor:
     """|STFT| as ``torch.stft(center=True)`` frames it (reflect padding, a
     periodic Hann of ``win_length`` centred in the frame), clamped at
     1e-7 in power."""
-    pad = fft_size // 2
-    xp = torch.nn.functional.pad(x[:, None], (pad, pad),
-                                 mode="reflect")[:, 0]
+    xp = reflect_pad(x, fft_size // 2)
     frames = xp.unfold(-1, fft_size, hop_size)
     lpad = (fft_size - win_length) // 2
     window = torch.nn.functional.pad(

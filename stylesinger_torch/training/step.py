@@ -93,6 +93,42 @@ def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(losses[k] for k in sorted(losses))
 
 
+def adam_moments(mu: List[torch.Tensor], nu: List[torch.Tensor],
+                 grads: List[torch.Tensor], b1: float, b2: float):
+    """optax's moment updates: (1 - b) * g + b * m, and the same of g^2."""
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                            torch._foreach_mul(mu, b1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+        torch._foreach_mul(nu, b2))
+    return mu, nu
+
+
+def bias_corrections(count: int, b1: float, b2: float):
+    """1 - b^count for both moments, in f32 as optax takes them."""
+    return (float(1 - np.float32(b1) ** np.float32(count)),
+            float(1 - np.float32(b2) ** np.float32(count)))
+
+
+def adam_direction(mu, nu, count: int, b1: float, b2: float, eps: float):
+    """optax ``scale_by_adam`` (eps_root 0): mu_hat / (sqrt(nu_hat) + eps),
+    ``count`` the count after this update."""
+    c1, c2 = bias_corrections(count, b1, b2)
+    return torch._foreach_div(
+        torch._foreach_div(mu, c1),
+        torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, c2)),
+                           eps))
+
+
+def apply_update_(params, upd, lr: float, weight_decay: float = 0.0) -> None:
+    """params -= lr * (upd + weight_decay * params), in place (optax
+    ``add_decayed_weights`` then ``scale_by_learning_rate``)."""
+    if weight_decay:
+        upd = torch._foreach_add(upd, torch._foreach_mul(list(params),
+                                                         weight_decay))
+    torch._foreach_add_(list(params), torch._foreach_mul(upd, -lr))
+
+
 class Optimizer:
     """optax ``chain(clip_by_global_norm(clip), adamw(schedule, b1, b2,
     eps=1e-8, eps_root=0, weight_decay))``, in ``MultiSteps(k)`` when
@@ -154,22 +190,11 @@ class Optimizer:
             torch.where(keep, one, torch.full_like(norm, self.clip)))
         lr = self.schedule(self.count)
         self.count += 1
-        b1, b2 = self.b1, self.b2
-        self.mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                     torch._foreach_mul(self.mu, b1))
-        self.nu = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-            torch._foreach_mul(self.nu, b2))
-        c1 = float(1 - np.float32(b1) ** np.float32(self.count))
-        c2 = float(1 - np.float32(b2) ** np.float32(self.count))
-        upd = torch._foreach_div(
-            torch._foreach_div(self.mu, c1),
-            torch._foreach_add(torch._foreach_sqrt(
-                torch._foreach_div(self.nu, c2)), self.eps))
-        if self.weight_decay:
-            upd = torch._foreach_add(upd, torch._foreach_mul(
-                list(params), self.weight_decay))
-        torch._foreach_add_(list(params), torch._foreach_mul(upd, -lr))
+        self.mu, self.nu = adam_moments(self.mu, self.nu, grads, self.b1,
+                                        self.b2)
+        upd = adam_direction(self.mu, self.nu, self.count, self.b1, self.b2,
+                             self.eps)
+        apply_update_(params, upd, lr, self.weight_decay)
 
     def state_dict(self) -> Dict[str, Any]:
         out = {"count": self.count, "mini_step": self.mini_step,

@@ -5,45 +5,97 @@
 HiFi-GAN generator, in one call (:meth:`HifiGAN_NSF.spec2wav`) or in
 crossfaded chunks of one shape (:meth:`HifiGAN_NSF.spec2wav_streaming`),
 and applies the spectral-subtraction denoiser when ``vocoder_denoise_c``
-> 0.  Checkpoint loading waits for the checkpoint slice: a set
-``vocoder_ckpt`` raises.  The PWG, MelGAN and Griffin-Lim wrappers are not
-ported.
+> 0.  Its weights come from ``vocoder_ckpt`` (:func:`load_vocoder_state_dict`)
+when that is set.  The PWG, MelGAN and Griffin-Lim wrappers are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+import glob
+import os
+import re
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from stylesinger_torch.convert import (
+    convert_hifigan, from_jax_params, load_torch_checkpoint,
+)
 from stylesinger_torch.dsp.denoise import denoise
 from stylesinger_torch.inference import init_random_, resolve_device
 from stylesinger_torch.models.diffusion import Noise
 from stylesinger_torch.models.hifigan import HifiGanGenerator
+GAN_STATE_FILE = "gan_state.pt"   # fit_vocoder's whole GAN state
+GENERATOR_FILE = "generator.pt"   # fit_vocoder's trained generator
+
+
+def read_generator_file(path: str) -> Dict[str, torch.Tensor]:
+    """The generator's ``state_dict`` from one of the port's own files:
+    ``generator.pt`` (the ``state_dict`` itself) or ``gan_state.pt`` (its
+    ``gen`` entry)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return payload["gen"] if os.path.basename(path) == GAN_STATE_FILE \
+        else payload
+
+
+def load_vocoder_state_dict(cfg: Any) -> Optional[Dict[str, torch.Tensor]]:
+    """The trained generator's ``state_dict`` from ``cfg['vocoder_ckpt']``
+    (JAX ``vocoder_infer.py::load_vocoder_params``):
+
+    - a reference ``model_ckpt_steps_N.ckpt`` (its ``model_gen``, weight
+      norm folded), or a directory of them, where the highest N wins;
+    - the port's own ``generator.pt`` or ``gan_state.pt``
+      (:func:`read_generator_file`).
+
+    None when unset; a warning and None (random weights) when the path is
+    missing or a directory holds no reference checkpoint."""
+    ckpt = cfg.get("vocoder_ckpt", "")
+    if not ckpt:
+        return None
+    if not os.path.exists(ckpt):
+        print(f"| WARN: vocoder_ckpt {ckpt} not found; "
+              "using random vocoder weights")
+        return None
+    path = ckpt
+    if os.path.isdir(ckpt):
+        refs = glob.glob(os.path.join(ckpt, "model_ckpt_steps_*.ckpt"))
+        if not refs:
+            print(f"| WARN: vocoder_ckpt dir {ckpt} has no reference "
+                  "model_ckpt_steps_*.ckpt; using random vocoder weights")
+            return None
+        path = max(refs, key=lambda p: int(re.findall(
+            r"steps_(\d+)", os.path.basename(p))[0]))
+    if path.endswith(".ckpt"):
+        return from_jax_params(convert_hifigan(
+            load_torch_checkpoint(path, child="model_gen"), cfg))
+    return read_generator_file(path)
+
 
 class HifiGAN_NSF:
     """mel [T, M] + f0 [T] -> wav [T * hop] with the NSF HiFi-GAN generator.
 
-    ``model``: a generator with its weights; by default one with seeded
-    random weights (``seed``; the JAX wrapper's flax init is random too when
-    no checkpoint is set).  Runs on ``device`` (``cuda`` unless the caller
-    asks for the CPU; raises when CUDA is absent).  Each call draws the
+    ``model``: a generator with its weights; by default one with the
+    weights of ``vocoder_ckpt`` (:func:`load_vocoder_state_dict`), or,
+    where it is unset or missing, seeded random weights (``seed``; the JAX
+    wrapper's flax init is random too).  Runs on ``device`` (``cuda``
+    unless the caller asks for the CPU; raises when CUDA is absent).  Each call draws the
     generator's noise from a fresh ``Noise(seed)`` unless ``noise`` is
     given, as the JAX wrapper reuses one key for every call."""
 
     def __init__(self, cfg: Any, model: Optional[HifiGanGenerator] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
-        if cfg.get("vocoder_ckpt", ""):
-            raise NotImplementedError("vocoder_ckpt: checkpoint loading is "
-                                      "not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seed = seed
         if model is None:
             model = HifiGanGenerator(cfg)
-            init_random_(model, torch.Generator().manual_seed(seed),
-                         conv_std=0.01)
+            sd = load_vocoder_state_dict(cfg)
+            if sd is None:
+                init_random_(model, torch.Generator().manual_seed(seed),
+                             conv_std=0.01)
+            else:
+                model.load_state_dict(sd)
         self.model = model.to(self.device).eval()
 
     def _noise(self, noise):

@@ -8,7 +8,7 @@ import pytest
 from stylesinger_tpu.config import load_config as jax_load_config
 
 from stylesinger_torch.config import (
-    DEFAULTS, RECIPES, load_config, parse_hparams,
+    DEFAULTS, RECIPES, VOCODER_TRAINING, load_config, parse_hparams,
 )
 
 
@@ -48,3 +48,32 @@ def test_hparams_parse_as_the_jax_cli_does():
     assert parse_hparams("") == {}
     with pytest.raises(ValueError, match="nested"):
         parse_hparams("mesh_shape.data=2")
+
+
+def test_vocoder_training_keys_are_the_jax_tasks_get_defaults():
+    """The JAX package's config has no vocoder-training keys; its vocoder
+    task reads them with ``cfg.get(key, default)``.  Recorded from its own
+    calls (the state's init traced, not run): every key and default of
+    ``VOCODER_TRAINING``, and ``load_config`` carries them."""
+    import jax
+    import jax.numpy as jnp
+
+    from stylesinger_tpu.config import tiny_test_config
+    from stylesinger_tpu.training import vocoder_task as jvt
+
+    seen = {}
+
+    class Recording(dict):
+        def get(self, key, default=None):
+            seen[key] = default
+            return dict.get(self, key, default)
+
+    cfg = Recording(tiny_test_config())
+    jvt.make_vocoder_bodies(cfg)
+    jax.eval_shape(lambda: jvt.init_vocoder_state(
+        cfg, jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
+        jnp.zeros((1, 8))))
+    assert not set(VOCODER_TRAINING) & set(jax_load_config(None))
+    assert {k: seen[k] for k in VOCODER_TRAINING if k in seen} == \
+        VOCODER_TRAINING
+    assert {k: load_config()[k] for k in VOCODER_TRAINING} == VOCODER_TRAINING

@@ -160,8 +160,10 @@ def test_generator_past_the_kernels_reach_matches_cpu(cuda, dtype):
                       generator=torch.Generator().manual_seed(1))
     f0 = torch.full((1, 40), 220.0)
     before = (mrfk.counter.count, mrfk.counter_bf16.count)
-    ref = cpu(mel, f0, Noise(2, "cpu"))
-    out = gpu(mel.to(cuda), f0.to(cuda), _CpuDraws(Noise(2, "cpu"), cuda))
+    with torch.no_grad():
+        ref = cpu(mel, f0, Noise(2, "cpu"))
+        out = gpu(mel.to(cuda), f0.to(cuda),
+                  _CpuDraws(Noise(2, "cpu"), cuda))
     assert (mrfk.counter.count, mrfk.counter_bf16.count) == before
     tol = 1e-5 if dtype == "float32" else 2e-2 * ref.abs().max().item()
     assert (out.cpu() - ref).abs().max().item() <= tol
@@ -247,3 +249,120 @@ def test_tiny_train_step_on_the_card_matches_cpu(cuda):
     for k, v in gpu.model.state_dict().items():
         if ".codebook_" in k:
             assert (v.cpu() - ref[k]).abs().max().item() <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd(cuda):
+    """Neither kernel has a backward: on a CUDA tensor each wrapper raises
+    while autograd records an input or weight that requires grad, and runs
+    under no_grad or on tensors that do not."""
+    wav = torch.randn(4096, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        melk.mel_spectrogram(wav.clone().requires_grad_(True))
+    with torch.no_grad():
+        melk.mel_spectrogram(wav.clone().requires_grad_(True))
+    melk.mel_spectrogram(wav)
+    c, block, t, rk, rd = MRF_CASES["C64"]
+    halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    xb, mask, _ = _blockify(torch.randn((1, t, c), device=cuda), block, halo)
+    weights = [[tuple((torch.randn((k, c, c), device=cuda) / math.sqrt(k * c),
+                       torch.zeros((c,), device=cuda)) for _ in range(2))
+                for _ in ds] for k, ds in zip(rk, rd)]
+    kw = dict(kernels=rk, dilations=rd, block=block, halo=halo)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrfk.fused_mrf_blocks(xb.clone().requires_grad_(True), mask, weights,
+                              **kw)
+    weights[0][0][0][0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
+    with torch.no_grad():
+        mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
+
+
+def _gan_config():
+    # the vocoder tests' audio; mrf_block 64 blocks the last three stages
+    return tiny_test_config(hop_size=64, fft_size=256, win_size=256,
+                            fmax=8000, audio_sample_rate=16000, mrf_block=64)
+
+
+def _gan_batch(device):
+    rng = np.random.default_rng(3)
+    f0 = rng.uniform(150, 250, (2, 16)).astype(np.float32)
+    f0[:, -3:] = 0.0
+    return {k: torch.as_tensor(v, device=device) for k, v in {
+        "mels": rng.standard_normal((2, 16, 16)).astype(np.float32),
+        "f0": f0,
+        "wav": 0.3 * rng.standard_normal((2, 1024)).astype(np.float32)}.items()}
+
+
+@pytest.mark.cuda
+def test_disc_step_generator_pass_on_the_kernel_matches_blocks(cuda):
+    """The discriminator step's generator pass (no gradient) launches the
+    MRF kernel on the three blocked stages; with a gradient recorded the
+    same stages run the resblock modules: the same wav within the kernel's
+    1e-4 of max|y|."""
+    from stylesinger_torch.training import vocoder_task as vt
+
+    state = vt.init_vocoder_state(_gan_config(), device=cuda)
+    b = _gan_batch(cuda)
+    before = mrfk.counter.count
+    with torch.no_grad():
+        kernel = state.gen(b["mels"], b["f0"],
+                           _CpuDraws(Noise(0, "cpu"), cuda))
+    assert mrfk.counter.count == before + 3 * 9
+    blocks = state.gen(b["mels"], b["f0"], _CpuDraws(Noise(0, "cpu"), cuda))
+    assert mrfk.counter.count == before + 3 * 9 and blocks.requires_grad
+    err = (kernel - blocks.detach()).abs().max().item()
+    assert err <= 1e-4 * blocks.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_tiny_gan_iteration_on_the_card_matches_cpu(cuda):
+    """One discriminator + generator iteration on the card against the CPU:
+    the same weights, batch and draws (CPU generators, handed over on the
+    card), TF32 off.  Every loss within 1e-5 (relative, atol 1e-5); each
+    gradient leaf within 2e-3 relative + 2e-4 x max|g_leaf| + 1e-7 x
+    max|g|; each parameter within 0.05 x lr where its CPU gradient is
+    >= 1e-6 (Adam's first step moves it by about lr)."""
+    from stylesinger_torch.training import vocoder_task as vt
+
+    cfg = _gan_config()
+    cpu = vt.init_vocoder_state(cfg, device="cpu")
+    gpu = vt.init_vocoder_state(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    grads = {}
+    for name, st in (("cpu", cpu), ("gpu", gpu)):
+        seen = grads[name] = []
+        for opt in (st.disc_opt, st.gen_opt):
+            def rec(params, g, _step=opt.step, _seen=seen):
+                _seen.append([x.detach().cpu().clone() for x in g])
+                _step(params, g)
+            opt.step = rec
+    disc_step, gen_step = vt.make_vocoder_bodies(cfg)
+    metrics = {}
+    for name, st, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, cuda)):
+        b = _gan_batch(dev)
+        m = disc_step(st, b, _CpuDraws(Noise(5, "cpu"), dev))
+        m.update(gen_step(st, b, _CpuDraws(Noise(5, "cpu"), dev)))
+        metrics[name] = {k: v.item() for k, v in m.items()}
+    for k, v in metrics["cpu"].items():
+        assert abs(metrics["gpu"][k] - v) <= 1e-5 * max(1.0, abs(v)), k
+    lr = cfg["vocoder_lr"]
+    for side, named in ((0, list(cpu.named_disc_params())),
+                        (1, [n for n, _ in cpu.gen.named_parameters()])):
+        g_cpu, g_gpu = grads["cpu"][side], grads["gpu"][side]
+        g_max = max(g.abs().max().item() for g in g_cpu)
+        for n, a, b in zip(named, g_cpu, g_gpu):
+            tol = 2e-3 * a.abs() + 2e-4 * a.abs().max() + 1e-7 * g_max
+            assert ((b - a).abs() <= tol).all(), n
+    p_cpu = {**dict(cpu.gen.named_parameters()),
+             **cpu.named_disc_params()}
+    p_gpu = {**dict(gpu.gen.named_parameters()),
+             **gpu.named_disc_params()}
+    g_all = dict(zip(list(cpu.named_disc_params()) +
+                     [n for n, _ in cpu.gen.named_parameters()],
+                     grads["cpu"][0] + grads["cpu"][1]))
+    for n, p in p_cpu.items():
+        steady = g_all[n].abs() >= 1e-6
+        diff = (p_gpu[n].detach().cpu() - p.detach()).abs()
+        assert (diff[steady] <= 0.05 * lr).all(), n

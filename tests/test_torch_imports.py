@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, flax, PyYAML or JAX package, and
-kernels that build with plain nvcc into a git-ignored directory."""
+"""The PyTorch port stands alone: no JAX, flax, optax, PyYAML or JAX
+package, and kernels that build with plain nvcc into a git-ignored
+directory."""
 
 import subprocess
 import sys
@@ -9,7 +10,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "flax", "yaml", "stylesinger_tpu"):
+for name in ("jax", "flax", "optax", "yaml", "stylesinger_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import stylesinger_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
@@ -20,7 +21,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 assert callable(smoke.main)
-blocked = [m for m in ("jax", "flax", "yaml", "stylesinger_tpu")
+blocked = [m for m in ("jax", "flax", "optax", "yaml", "stylesinger_tpu")
            if sys.modules.get(m) is not None]
 assert not blocked, blocked
 print(" ".join(names))
@@ -28,6 +29,7 @@ print(" ".join(names))
 
 
 def test_port_imports_without_jax_flax_yaml_or_jax_package():
+    """optax is blocked too: the port writes its optimizers out."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
@@ -48,7 +50,8 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.training.losses",
                      "stylesinger_torch.training.schedules",
                      "stylesinger_torch.training.step",
-                     "stylesinger_torch.training.trainer"):
+                     "stylesinger_torch.training.trainer",
+                     "stylesinger_torch.training.vocoder_task"):
         assert expected in names
 
 

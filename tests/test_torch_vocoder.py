@@ -63,7 +63,8 @@ def _port(over, variables):
 
 def _port_wav(gen, mel, f0, draws):
     noise = Replay(draws)
-    wav = gen(torch.tensor(mel)[None], torch.tensor(f0)[None], noise)
+    with torch.no_grad():  # inference: the MRF stages the kernel takes
+        wav = gen(torch.tensor(mel)[None], torch.tensor(f0)[None], noise)
     assert noise.draws == []
     return to_np(wav)[0]
 
@@ -207,6 +208,12 @@ def test_denoise_matches_jax(n, n_fft, hop, win):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
 
 
-def test_wrapper_refuses_a_checkpoint():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        HifiGAN_NSF(torch_tiny(vocoder_ckpt="ckpt/voc"), device="cpu")
+def test_wrapper_refuses_a_checkpoint(capsys):
+    """A ``vocoder_ckpt`` that does not exist is refused with JAX's warning
+    and the seeded random weights stay (loading a checkpoint that exists:
+    ``tests/test_torch_vocoder_ckpt.py``)."""
+    voc = HifiGAN_NSF(torch_tiny(vocoder_ckpt="ckpt/voc"), device="cpu")
+    assert "vocoder_ckpt ckpt/voc not found" in capsys.readouterr().out
+    seeded = HifiGAN_NSF(torch_tiny(), device="cpu").model.state_dict()
+    for k, v in voc.model.state_dict().items():
+        assert torch.equal(v, seeded[k]), k
