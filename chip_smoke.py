@@ -48,14 +48,14 @@ Phases, each printed on its own line with its elapsed seconds:
    - ``train recipe``: ``Trainer.fit`` at the recipe's full width
      (``load_config(recipe="stylesinger")``, f32) on 8 seeded synthetic
      items of 600-1000 frames and 60-120 phones, collated into the
-     1024-frame / 128-token buckets, for 4 steps across a scaled-down
-     curriculum (``forcing=2, rq_start=1, diff_start=1``: 2 forcing steps,
-     then 2 with RQ and the mel diffusion), validation and a checkpoint at
-     step 4, then a restore that resumes at step 4 and must equal the
-     saved state exactly; it prints each step's time (host clock between
-     ``torch.cuda.synchronize()`` calls), steps/s after the first step,
-     the peak memory and one eval step's time, and it launches neither
-     kernel;
+     1024-frame / 128-token buckets, for 12 steps across a scaled-down
+     curriculum (``forcing=6, rq_start=5, diff_start=5``: 6 forcing
+     steps, then 6 with RQ and the mel diffusion), validation and a
+     checkpoint at step 12, then a restore that resumes at step 12 and
+     must equal the saved state exactly; it prints each step's time (host
+     clock between ``torch.cuda.synchronize()`` calls), steps/s after the
+     first step, the peak memory and one eval step's time, and it launches
+     neither kernel;
 5. training the vocoder GAN on the card:
    - ``small vocoder gan step``: one discriminator + generator iteration of
      the tiny GAN on the card against the CPU (same weights, batch and
@@ -78,7 +78,33 @@ Phases, each printed on its own line with its elapsed seconds:
      resynthesis mel L1 through ``wav2spec`` (the mel kernel, held against
      its plain twin on both wavs), finite, with no gate on random-start
      weights;
-6. device time per call of each kernel and its twin at the shapes of
+6. singing with what phases 4 and 5 trained, at the recipe's width (the
+   ``train recipe`` work dir and the ``vocoder gan`` generator are kept
+   in a temporary directory inside the checkout until then):
+   - ``checkpoint infer``: ``StyleSingerInfer(recipe).load_params(work
+     dir)`` with the trained ``generator.pt`` as ``vocoder_ckpt`` and two
+     GE2E files of seeded weights in the reference's layout, each loaded
+     tensor bit for bit what was saved; the example phrase's 27 / 12 / 6
+     phones, each float output of the acoustic model (durations, mel,
+     ...) and the wav of the whole mel (before the crop to the predicted
+     length, which a 12-step model leaves short or empty) within 1e-5 of
+     their max of an instance that holds the trainer's in-memory state,
+     the cropped wavs of one length, 1 mel and 27 bf16 MRF launches each; then the phrase through ``run.py
+     infer`` from the work dir (its wav within 1 LSB); ``load_params``
+     seconds, latency, audio seconds and RTF are printed;
+   - ``test split``: ``run.py test`` from the same work dir on a 4-item
+     test split written with the port's shard writer, ``test_ids=[0, 2,
+     3]`` and the fast samplers: 3 items with their ``_gt`` twins,
+     ``meta.csv``, ``result_f0s.npy``, and 9 bf16 MRF launches per stage
+     of each ``spec2wav`` that fits the kernel and holds two blocks (27
+     per ground-truth mel, none for a generated one of a few frames); then
+     ``evaluate_dir`` with the speaker encoder's file, 2 mel launches per
+     pair, MCD / FFE / d-vector cosine finite, and the mel kernel against
+     its plain twin on a generated wav; the trained vocoder on a
+     ground-truth mel, each bf16 MRF stage and the wav against the plain
+     bf16 twin within 2 bf16 ulps of max|y|; seconds per item and per
+     pair;
+7. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
@@ -96,8 +122,10 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,6 +141,7 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 BUILD_LIMIT_S = 60.0
 MEL_TOL = dict(atol=3e-3, rtol=2e-3)
 MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
+TEST_IDS = (0, 2, 3)      # test split: the items run.py test synthesizes
 MRF_BF16_ULPS = 2        # bf16 ulps of max|y|: an f32 sum in another order
                          # can land across a bf16 rounding
 
@@ -888,14 +917,14 @@ def phase_train_small(t0, torch, np):
             f"differs ({worst:.2f} x its tolerance)")
 
 
-def phase_train_recipe(t0, torch, np):
+def phase_train_recipe(t0, torch, np, root: Path):
     """Trainer.fit at the recipe's full width: 12 steps, 6 in each phase of
     the curriculum, validation, a checkpoint, and an exact restore.  Each
     phase's first step pays for its first run; its 5 warm steps give the
     phase's median and spread, and the last phase's warm steps the
-    steps/s."""
-    import tempfile
-
+    steps/s.  The work dir ``<root>/train/recipe`` stays for the serving
+    phases; returns the run: its config, final state, work dir and vocab
+    size."""
     from stylesinger_torch.config import load_config
     from stylesinger_torch.models.stylesinger import StyleSinger
     from stylesinger_torch.training import step as ts
@@ -934,9 +963,9 @@ def phase_train_recipe(t0, torch, np):
         ctr.reset()
     torch.cuda.reset_peak_memory_stats()
     tr.train_step = timed_step
-    work = tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO))
+    work = root / "train" / "recipe"
     try:
-        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, work.name)
+        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
         state = trainer.fit([batch], lambda: [batch], max_updates=n_steps)
         tr.train_step = train_step
         peak = torch.cuda.max_memory_allocated()
@@ -948,7 +977,7 @@ def phase_train_recipe(t0, torch, np):
         ev = ts.eval_step(state, b_dev, last, cfg)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - te
-        again = tr.Trainer(StyleSinger(cfg, vocab), cfg, work.name)
+        again = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
         restored = again.init_state()
         saved = state.model.state_dict()
         same = all(torch.equal(v, saved[k]) for k, v in
@@ -960,7 +989,6 @@ def phase_train_recipe(t0, torch, np):
         ckpt_steps = trainer.ckpt.all_steps()
     finally:
         tr.train_step = train_step
-        work.cleanup()
     n_params = sum(p.numel() for p in state.model.parameters())
     for i, (phase, sec, m) in enumerate(steps):
         say(f"train recipe step {i}", t0, flags="/".join(
@@ -1015,6 +1043,7 @@ def phase_train_recipe(t0, torch, np):
     require(all(v == 0 for v in launches.values()),
             f"train recipe: a kernel launched on the training path "
             f"{launches}")
+    return dict(cfg=cfg, state=state, work=work, vocab=vocab)
 
 
 def _gan_check(torch, np, cpu, gpu, grads, lr):
@@ -1160,7 +1189,7 @@ def gan_iteration_flop(torch, state, batch, noise):
     return g + 6 * d, 3 * g + 3 * d
 
 
-def phase_vocoder_gan(t0, torch, np):
+def phase_vocoder_gan(t0, torch, np, root: Path) -> Path:
     """The vocoder GAN at the flagship width: ``fit_vocoder`` 6 iterations
     on the host crops (1 warm-up + 5 warm), 2 more through the device loop
     (``spd`` 2), then an exact restore, ``HifiGAN_NSF`` on the saved
@@ -1168,12 +1197,13 @@ def phase_vocoder_gan(t0, torch, np):
     unbroken state, the discriminator step's generator pass at the path's
     shapes on the MRF kernel against the "blocks" route, and the
     resynthesis mel L1 through ``wav2spec``, its mel kernel against the
-    plain twin."""
+    plain twin.  Returns the trained ``generator.pt``, copied to
+    ``<root>`` for the serving phases."""
+    import shutil
     import tempfile
 
     from stylesinger_torch.config import load_config
     from stylesinger_torch.dsp.mel import wav2spec
-    from stylesinger_torch.kernels import mel as melk
     from stylesinger_torch.models.diffusion import Noise
     from stylesinger_torch.training import vocoder_task as vt
     from stylesinger_torch.training.checkpoint import load_payload
@@ -1306,6 +1336,8 @@ def phase_vocoder_gan(t0, torch, np):
             cfg["upsample_rates"][:i + 1])) // cfg["mrf_block"]
             for i, r in enumerate(state.gen.mrf_routes(crop)) if r == "kernel"]
         del fake_kernel, fake_blocks
+        generator = root / vt.GENERATOR_FILE
+        shutil.copy(Path(work.name) / vt.GENERATOR_FILE, generator)
     finally:
         vt.make_vocoder_steps, vt.make_vocoder_scan = make_steps, make_scan
         work.cleanup()
@@ -1323,18 +1355,12 @@ def phase_vocoder_gan(t0, torch, np):
     mel_l1 = float((mg[:n] - mr[:n]).abs().mean())
     resynth_mel_launches = counters()["mel_spectrogram"].count
     # the mel kernel against its plain twin on the same two wavs
-    consts = melk._constants(cfg["audio_sample_rate"], cfg["fft_size"],
-                             cfg["win_size"], cfg["audio_num_mel_bins"],
-                             cfg["fmin"], cfg["fmax"], dev)
     resynth_mel_err, resynth_mel_ok = 0.0, True
     for w, out in ((wav_gen, mg),
                    (held_out["wav"][: 512 * cfg["hop_size"]], mr)):
-        ref = melk.mel_spectrogram_plain(
-            torch.as_tensor(np.asarray(w, np.float32), device=dev), *consts,
-            cfg["hop_size"], 1e-6)
-        resynth_mel_ok &= out.shape == ref.shape and bool(
-            torch.allclose(out, ref, **MEL_TOL))
-        resynth_mel_err = max(resynth_mel_err, float((out - ref).abs().max()))
+        ok, err = mel_against_plain(torch, np, cfg, w, out)
+        resynth_mel_ok &= ok
+        resynth_mel_err = max(resynth_mel_err, err)
 
     for i, (kind, ms, mrf, m) in enumerate(log):
         label = (f"{kind} step {i // 2}" if kind != "scan" else
@@ -1424,6 +1450,390 @@ def phase_vocoder_gan(t0, torch, np):
             f"({pass_launches} launches) differs from the blocks route "
             f"({blocks_launches} launches) by {pass_err:.3e} of max|y| "
             f"{pass_scale:.3e}")
+    return generator
+
+
+def ge2e_file(torch, path: Path, seed: int) -> str:
+    """A GE2E encoder checkpoint in the reference's layout, ``{"model_state":
+    sd}`` of a 3-layer LSTM(40 -> 256) and a linear head, seeded weights."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for prefix, module in (("lstm", torch.nn.LSTM(40, 256, 3,
+                                                  batch_first=True)),
+                           ("linear", torch.nn.Linear(256, 256))):
+        for k, v in module.state_dict().items():
+            scale = 0.1 if k.startswith("bias") else v.shape[-1] ** -0.5
+            sd[f"{prefix}.{k}"] = torch.randn(v.shape, generator=g) * scale
+    torch.save({"model_state": sd, "step": 0}, path)
+    return str(path)
+
+
+def serve_inputs(torch, np, root: Path, train, generator: Path, wav_np):
+    """What the serving phases read, under ``<root>/serve``: the corpus dir
+    (a ``phone_set.json`` of the trained model's vocab, the example's phones
+    among them, and a 4-item binarized test split written with the port's
+    shard writer), two GE2E files, the reference clip as a wav; and the
+    recipe's config naming them with ``--hparams``."""
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.data.indexed_dataset import IndexedDatasetBuilder
+    from stylesinger_torch.dsp.mel import save_wav
+    from stylesinger_torch.text import build_token_encoder
+
+    serve = root / "serve"
+    binary = serve / "binary"
+    binary.mkdir(parents=True)
+    phones = sorted(set(EXAMPLE["ph"].split()))
+    phones += [f"p{i}" for i in range(train["vocab"] - 3 - len(phones))]
+    require(len(build_token_encoder(phones)) == train["vocab"],
+            "serve: the phone set does not give the trained vocab")
+    (binary / "phone_set.json").write_text(json.dumps(phones))
+    test_items = synthetic_items(np, 4, (200, 501), (30, 61),
+                                 train["cfg"]["audio_num_mel_bins"],
+                                 train["vocab"], SEED + 2)
+    builder = IndexedDatasetBuilder(str(binary / "test"))
+    for item in test_items:
+        builder.add_item(item)
+    builder.finalize()
+    np.save(binary / "test_lengths.npy",
+            np.asarray([len(it["mel"]) for it in test_items]))
+    ref = serve / "ref.wav"
+    save_wav(wav_np, str(ref), 48000)
+    paths = dict(vocoder_ckpt=str(generator),
+                 speaker_encoder_path=ge2e_file(torch, serve / "spk.pt",
+                                                SEED + 3),
+                 emotion_encoder_path=ge2e_file(torch, serve / "emo.pt",
+                                                SEED + 4),
+                 binary_data_dir=str(binary))
+    return dict(cfg=load_config(recipe="stylesinger", **paths),
+                hparams=",".join(f"{k}={v}" for k, v in paths.items()),
+                ref=ref, serve=serve, test_items=test_items, **paths)
+
+
+def _same_weights(torch, module, sd) -> bool:
+    own = module.state_dict()
+    return own.keys() == sd.keys() and all(
+        torch.equal(v, sd[k].to(v.device)) for k, v in own.items())
+
+
+def phase_checkpoint_infer(t0, torch, np, train, inputs, wav_np):
+    """``StyleSingerInfer`` of the recipe with trained weights: the
+    ``train recipe`` work dir through ``load_params`` (its latest
+    checkpoint), the ``vocoder gan`` phase's ``generator.pt`` as
+    ``vocoder_ckpt`` and the two GE2E files, each bit for bit what was
+    saved; the example phrase's 27 / 12 / 6 phones against an instance
+    that holds the trainer's in-memory state (same noise seed); then the
+    phrase through ``run.py infer`` from the work dir."""
+    import wave
+
+    from stylesinger_torch import run
+    from stylesinger_torch.convert import from_jax_params, load_ge2e_checkpoint
+    from stylesinger_torch.inference import StyleSingerInfer
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.vocoder_infer import read_generator_file
+
+    cfg, state, work = inputs["cfg"], train["state"], train["work"]
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    infer = StyleSingerInfer(cfg, device="cuda")  # loads vocoder + GE2E
+    torch.cuda.synchronize()
+    tl = time.perf_counter()
+    infer.load_params(str(work))
+    torch.cuda.synchronize()
+    load_s, build_s = time.perf_counter() - tl, tl - tb
+    memory = StyleSingerInfer(cfg, device="cuda")
+    memory.load_params(state)
+    exact = dict(
+        model=_same_weights(torch, infer.model, state.model.state_dict()),
+        vocoder=_same_weights(torch, infer.vocoder, read_generator_file(
+            inputs["vocoder_ckpt"])),
+        spk_encoder=_same_weights(torch, infer.spk_encoder, from_jax_params(
+            load_ge2e_checkpoint(inputs["speaker_encoder_path"]))),
+        emo_encoder=_same_weights(torch, infer.emo_encoder, from_jax_params(
+            load_ge2e_checkpoint(inputs["emotion_encoder_path"]))))
+    say("checkpoint infer load", t0, step=state.step,
+        load_params_s=f"{load_s:.3f}", build_with_vocoder_and_ge2e_s=(
+            f"{build_s:.3f}"), bit_exact=exact)
+    require(all(exact.values()), f"checkpoint infer: loaded weights differ "
+            f"from what was saved {exact}")
+
+    none = {k: 0 for k in counters()}
+    expect = dict(none, mel_spectrogram=1, fused_mrf_blocks_bf16=27)
+    hop = cfg["hop_size"]
+
+    def untrimmed(m, req):
+        """forward_model's draws and outputs before the crop to the
+        predicted length: every float output of the acoustic model (the
+        durations, the style, the decoder input, the mel [max_frames, M],
+        ...), the wav the vocoder makes of the whole mel, and the
+        predicted frames."""
+        noise = Noise(cfg["seed"], "cuda")
+        with torch.no_grad():
+            ret = m.model(**m.preprocess_input(req), noise=noise)
+            wav = m.vocoder(ret["mel_out"], ret["f0_denorm"], noise)[0]
+        return ({k: v for k, v in ret.items()
+                 if torch.is_tensor(v) and v.is_floating_point()},
+                wav.cpu().numpy(), int((ret["mel2ph"] > 0).sum(-1).max()))
+
+    requests = [cut(EXAMPLE, 27), cut(EXAMPLE, 12), cut(EXAMPLE, 6)]
+    wants = []
+    for n, req in enumerate(requests):
+        req = dict(req, ref_audio=wav_np)
+        for ctr in counters().values():
+            ctr.reset()
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        wav = infer.infer_once(req)
+        torch.cuda.synchronize()
+        lat = time.perf_counter() - tr
+        launches = {k: c.count for k, c in counters().items()}
+        # a 12-step model predicts few frames (often none, and then the
+        # mel is all zeros), so the cropped wav may be empty: compare every
+        # acoustic output and the wav of the whole mel, then the crop
+        out, full, frames = untrimmed(infer, req)
+        out_m, full_m, frames_m = untrimmed(memory, req)
+        want = full_m[: frames_m * hop]
+        wants.append(want)
+        errs = {k: float((v - out_m[k]).abs().max())
+                if k in out_m and v.shape == out_m[k].shape else float("inf")
+                for k, v in out.items()}
+        scales = {k: float(v.abs().max()) for k, v in out_m.items()}
+        acoustic_ok = out.keys() == out_m.keys() and scales["dur"] > 0 and \
+            all(errs[k] <= 1e-5 * scales[k] for k in out)
+        scale = float(np.abs(full_m).max()) if full_m.size else 0.0
+        err = float(np.abs(full - full_m).max()) \
+            if full.shape == full_m.shape and full_m.size else float("inf")
+        audio_s = wav.shape[0] / cfg["audio_sample_rate"]
+        say(f"checkpoint infer request {n}", t0,
+            phones=len(req["ph"].split()), latency_s=f"{lat:.3f}",
+            samples=wav.shape[0], audio_s=f"{audio_s:.3f}",
+            rtf=f"{lat / audio_s:.4f}" if audio_s > 0 else "inf",
+            untrimmed_samples=full_m.shape[0],
+            untrimmed_vs_in_memory_err=f"{err:.3e}",
+            max_abs_untrimmed_wav=f"{scale:.3e}",
+            acoustic_outputs=sorted(out),
+            acoustic_worst_err=f"{max(errs.values()):.3e}",
+            dur_err=f"{errs['dur']:.3e}", max_abs_dur=f"{scales['dur']:.3e}",
+            mel_err=f"{errs['mel_out']:.3e}",
+            max_abs_mel=f"{scales['mel_out']:.3e}", tol="1e-5*max|.|",
+            mel_launches=launches["mel_spectrogram"],
+            mrf_bf16_launches=launches["fused_mrf_blocks_bf16"])
+        require(full_m.size > 0 and scale > 0 and np.isfinite(full).all()
+                and err <= 1e-5 * scale and acoustic_ok,
+                f"checkpoint infer request {n}: differs from the in-memory "
+                f"weights (wav {full.shape} vs {full_m.shape}, {err:.3e}; "
+                f"acoustic outputs {errs} of {scales})")
+        require(frames == frames_m and wav.shape == want.shape and
+                np.isfinite(wav).all(), f"checkpoint infer request {n}: "
+                f"{wav.shape} samples, the in-memory weights give "
+                f"{want.shape}")
+        require(launches == expect, f"checkpoint infer request {n}: "
+                f"launches {launches}, expected {expect}")
+
+    # the phrase through run.py's infer path, from the work dir
+    out = inputs["serve"] / "infer_out" / "test.wav"
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.synchronize()
+    tr = time.perf_counter()
+    rc = run.main(["infer", "--recipe", "stylesinger", "--hparams",
+                   inputs["hparams"], "--exp_name", work.name,
+                   "--work_dir_root", str(work.parent), "--ref_audio",
+                   str(inputs["ref"]), "--out", str(out)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - tr
+    launches = {k: c.count for k, c in counters().items()}
+    with wave.open(str(out), "rb") as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    want_pcm = (np.clip(wants[0], -1, 1) * 32767.0).astype(np.int16)
+    pcm_err = int(np.abs(pcm.astype(np.int32) - want_pcm).max()) \
+        if pcm.shape == want_pcm.shape and pcm.size else -1
+    say("checkpoint infer run.py infer", t0, rc=rc, seconds=f"{cli_s:.3f}",
+        samples=pcm.shape[0], vs_in_memory_lsb=pcm_err,
+        mel_launches=launches["mel_spectrogram"],
+        mrf_bf16_launches=launches["fused_mrf_blocks_bf16"])
+    require(rc == 0 and pcm.shape == want_pcm.shape and pcm.size > 0 and
+            0 <= pcm_err <= 1,
+            f"checkpoint infer: run.py infer (rc {rc}) wrote {pcm.shape} "
+            f"samples, {pcm_err} LSB from the in-memory wav")
+    require(launches == expect, f"checkpoint infer: run.py infer launches "
+            f"{launches}, expected {expect}")
+
+
+def phase_test_split(t0, torch, np, train, inputs):
+    """``run.py test`` from the ``train recipe`` work dir on the 4-item
+    test split with ``test_ids=[0, 2, 3]`` and the fast samplers, then
+    ``evaluate_dir`` of the generation dir with the speaker encoder's
+    file, the mel kernel against its plain twin on a generated wav, and
+    the bf16 MRF kernel against its plain twin on a ground-truth mel."""
+    import csv
+
+    from stylesinger_torch import run
+    from stylesinger_torch.dsp.mel import load_wav, wav2spec
+    from stylesinger_torch.eval.evaluate_gen import evaluate_dir
+
+    cfg, work = inputs["cfg"], train["work"]
+    fast = "test_ids=[{}],f0_speedup=5,dpm_steps=10".format(
+        ",".join(map(str, TEST_IDS)))
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    rc = run.main(["test", "--recipe", "stylesinger", "--hparams",
+                   f"{inputs['hparams']},{fast}", "--exp_name", work.name,
+                   "--work_dir_root", str(work.parent)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - ts
+    launches = {k: c.count for k, c in counters().items()}
+    gen = work / f"generated_{train['state'].step}"
+    names = sorted(os.listdir(gen / "wavs")) if gen.is_dir() else []
+    with open(gen / "meta.csv") as f:
+        rows = list(csv.DictReader(f))
+    f0s = np.load(gen / "result_f0s.npy", allow_pickle=True)
+    # the recipe's MRF stages have C = 256 / 128 / 64 / 32 channels and a
+    # widest reach of (11 - 1) * 5 = 50: stages 1-3 fit the kernel (C <=
+    # 128, reach <= 64); each takes it with at least two 2048-sample blocks
+    # and launches it once per dilation step (9).  So a ground-truth mel
+    # (200-500 frames) launches it 27 times, a generated one of fewer than
+    # 16 frames not at all.
+    rates, block = cfg["upsample_rates"], cfg["mrf_block"]
+
+    def mrf_launches(n):
+        return 9 * sum(n * int(np.prod(rates[:i + 1])) >= 2 * block
+                       for i in (1, 2, 3))
+
+    gen_frames = [int(r["n_frames"]) for r in rows]
+    gt = [inputs["test_items"][i] for i in TEST_IDS]
+    gt_frames = [len(it["mel"]) for it in gt]
+    want_gt = sum(map(mrf_launches, gt_frames))
+    want_mrf = want_gt + sum(map(mrf_launches, gen_frames))
+    say("test split run.py test", t0, rc=rc, items=len(rows),
+        wavs=len(names), seconds=f"{test_s:.3f}",
+        s_per_item=f"{test_s / max(len(rows), 1):.3f}",
+        frames_generated=gen_frames, frames_gt=gt_frames,
+        mrf_bf16_launches=launches["fused_mrf_blocks_bf16"],
+        mrf_bf16_launches_expected=want_mrf,
+        mel_launches=launches["mel_spectrogram"], samplers=fast)
+    require(rc == 0 and len(rows) == 3 and len(f0s) == 3 and names == sorted(
+        f"item_{i:04d}{s}.wav" for i in range(3) for s in ("", "_gt")),
+            f"test split: run.py test (rc {rc}) wrote {names}")
+    require(want_gt == 27 * len(TEST_IDS) and launches == dict(
+        {k: 0 for k in counters()}, fused_mrf_blocks_bf16=want_mrf),
+            f"test split: launches {launches}, expected {want_mrf} bf16 MRF")
+
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    summary = evaluate_dir(str(gen), sr=cfg["audio_sample_rate"], cfg=cfg,
+                           spk_encoder_path=inputs["speaker_encoder_path"],
+                           device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - te
+    mel_launches = counters()["mel_spectrogram"].count
+    with open(gen / "metrics.json") as f:
+        items = json.load(f)["items"]
+    finite = all(np.isfinite(r[k]) for r in items
+                 for k in ("mcd", "ffe", "spk_cos"))
+    wav = load_wav(str(gen / "wavs" / "item_0000.wav"),
+                   cfg["audio_sample_rate"])
+    mel = wav2spec(wav, torch.device("cuda"),
+                   sample_rate=cfg["audio_sample_rate"],
+                   n_fft=cfg["fft_size"], hop_size=cfg["hop_size"],
+                   win_length=cfg["win_size"],
+                   n_mels=cfg["audio_num_mel_bins"], fmin=cfg["fmin"],
+                   fmax=cfg["fmax"])["mel"]
+    mel_ok, mel_err = mel_against_plain(torch, np, cfg, wav, mel)
+    say("test split evaluate_dir", t0, pairs=summary["n"],
+        seconds=f"{eval_s:.3f}",
+        s_per_pair=f"{eval_s / max(summary['n'], 1):.3f}",
+        mcd_mean=f"{summary.get('mcd_mean', float('nan')):.4f}",
+        ffe_mean=f"{summary.get('ffe_mean', float('nan')):.4f}",
+        spk_cos_mean=f"{summary.get('spk_cos_mean', float('nan')):.6f}",
+        mel_launches=mel_launches, mel_vs_plain_err=f"{mel_err:.3e}",
+        mel_tol="atol3e-3/rtol2e-3", weights="12-step model, random GE2E")
+    require(summary["n"] == 3 and mel_launches == 2 * 3,
+            f"test split: {summary['n']} pairs, {mel_launches} mel launches")
+    require(finite, f"test split: a metric is not finite {items}")
+    require(mel_ok, f"test split: the mel kernel disagrees with its plain "
+            f"twin on a generated wav ({mel_err:.3e})")
+
+    # the bf16 MRF kernel at this path's own shapes (a ground-truth mel of
+    # a few hundred frames: fewer blocks than SMs at stage 1)
+    check = mrf_against_plain_bf16(torch, np, cfg, gt[0])
+    say("test split gt vocoder vs plain bf16 twin", t0,
+        frames=len(gt[0]["mel"]), stage_xb=[st[0] for st in check["stages"]],
+        stage_err=[f"{st[1]:.3e}" for st in check["stages"]],
+        stage_tol=[f"{st[2]:.3e}" for st in check["stages"]],
+        wav_err=f"{check['err']:.3e}", max_abs_y=f"{check['scale']:.3e}",
+        tol=f"{MRF_BF16_ULPS}ulp(max|y|)={check['tol']:.3e}")
+    require(len(check["stages"]) == 3 and all(
+        err <= tol for _, err, tol in check["stages"]),
+        f"test split: the bf16 MRF kernel disagrees with its plain twin on "
+        f"a ground-truth mel's stages {check['stages']}")
+    require(check["err"] <= check["tol"], f"test split: the ground-truth "
+            f"wav with the bf16 MRF kernel differs from the plain twin's by "
+            f"{check['err']:.3e} > {check['tol']:.3e}")
+
+
+def mrf_against_plain_bf16(torch, np, cfg, item):
+    """The trained generator (``vocoder_ckpt``, bf16) on ``item``'s mel
+    and f0, on the card, twice: through the MRF kernel, recording each
+    kernel-routed stage's inputs and output, and with the plain bf16 twin
+    in the kernel's place.  Returns each stage's (xb shape, max abs error
+    against the twin on the same inputs, 2 bf16 ulps of the twin's
+    max|y|), and the two wavs' max abs difference, max|y| and tolerance."""
+    from stylesinger_torch.kernels import mrf as mrfk
+    from stylesinger_torch.models import hifigan
+    from stylesinger_torch.vocoder_infer import get_vocoder_cls
+
+    voc = get_vocoder_cls(cfg)(cfg, device="cuda")
+    stages = []
+
+    def recorded(xb, mask, weights, **kw):
+        out = mrfk.fused_mrf_blocks(xb, mask, weights, **kw)
+        stages.append((xb, mask, weights, kw, out))
+        return out
+
+    def twin(xb, mask, weights, compute_dtype, **kw):
+        return mrfk.mrf_blocks_plain_bf16(xb, mask, weights, **kw)
+
+    try:
+        hifigan.fused_mrf_blocks = recorded
+        y = voc.spec2wav(item["mel"], f0=item["f0"])
+        hifigan.fused_mrf_blocks = twin
+        y_twin = voc.spec2wav(item["mel"], f0=item["f0"])
+    finally:
+        hifigan.fused_mrf_blocks = mrfk.fused_mrf_blocks
+    per_stage = []
+    for xb, mask, weights, kw, out in stages:
+        kw = {k: v for k, v in kw.items() if k != "compute_dtype"}
+        with torch.no_grad():
+            ref = mrfk.mrf_blocks_plain_bf16(xb, mask, weights, **kw).float()
+        err = float((out.float() - ref).abs().max())
+        per_stage.append((tuple(xb.shape), err, MRF_BF16_ULPS * ulp_bf16(
+            float(ref.abs().max()))))
+    scale = float(np.abs(y_twin).max())
+    return dict(stages=per_stage, err=float(np.abs(y - y_twin).max()),
+                scale=scale, tol=MRF_BF16_ULPS * ulp_bf16(scale))
+
+
+def mel_against_plain(torch, np, cfg, wav, mel):
+    """(agrees, max abs error) of ``mel``, the mel kernel's log-mel of
+    ``wav`` on the card, against the plain twin on the same wav, at the
+    mel tolerance."""
+    from stylesinger_torch.kernels import mel as melk
+
+    dev = mel.device
+    consts = melk._constants(cfg["audio_sample_rate"], cfg["fft_size"],
+                             cfg["win_size"], cfg["audio_num_mel_bins"],
+                             cfg["fmin"], cfg["fmax"], dev)
+    ref = melk.mel_spectrogram_plain(
+        torch.as_tensor(np.asarray(wav, np.float32), device=dev), *consts,
+        cfg["hop_size"], 1e-6)
+    if mel.shape != ref.shape:
+        return False, float("inf")
+    return (bool(torch.allclose(mel, ref, **MEL_TOL)),
+            float((mel - ref).abs().max()))
 
 
 def main() -> int:
@@ -1456,9 +1866,16 @@ def main() -> int:
         phase_streaming(t0, torch, np, infer, wav_np)
         phase_small(t0, torch, np, wav_np)
         phase_train_small(t0, torch, np)
-        phase_train_recipe(t0, torch, np)
-        phase_vocoder_gan_small(t0, torch, np)
-        phase_vocoder_gan(t0, torch, np)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                         dir=str(REPO)) as tmp:
+            root = Path(tmp)
+            train = phase_train_recipe(t0, torch, np, root)
+            phase_vocoder_gan_small(t0, torch, np)
+            generator = phase_vocoder_gan(t0, torch, np, root)
+            inputs = serve_inputs(torch, np, root, train, generator, wav_np)
+            phase_checkpoint_infer(t0, torch, np, train, inputs, wav_np)
+            phase_test_split(t0, torch, np, train, inputs)
+            del train
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

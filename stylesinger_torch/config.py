@@ -2,11 +2,11 @@
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
 ported modules read (model, training, data), ``apply_spec_stats`` and
-``tiny_test_config``, and ``VOCODER_TRAINING``, the vocoder task's keys
-that the JAX package reads with ``cfg.get``.  No YAML
-reader is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for
-each recipe of ``egs/``, the keys the port reads where the recipe and its
-bases differ from the defaults, and ``load_config(recipe=..., **overrides)``
+``tiny_test_config``, and ``READ_WITH_GET``, the keys that the JAX
+package's vocoder task and dataset read with ``cfg.get``.  No YAML reader
+is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for each
+recipe of ``egs/``, the keys the port reads where the recipe and its bases
+differ from the defaults, and ``load_config(recipe=..., **overrides)``
 returns a deep copy of ``DEFAULTS`` with the recipe and then the keyword
 overrides applied.
 """
@@ -111,6 +111,12 @@ DEFAULTS: Dict[str, Any] = dict(
     # rate wav through the 16 kHz front-end (style_binarizer.py:325,
     # inference/StyleSinger.py:100-104); False = proper 16 kHz resample
     spk_embed_at_native_rate=True,
+    # pretrained GE2E d-vector encoders (torch .pt, converted at load,
+    # convert.py::load_ge2e_checkpoint): the reference's emotion encoder
+    # (checkpoints/global.pt) and resemblyzer's pretrained.pt; empty ->
+    # random weights
+    emotion_encoder_path="",
+    speaker_encoder_path="",
     # --- note encoder ---
     note_vocab=100,
     note_type_vocab=5,
@@ -150,6 +156,7 @@ DEFAULTS: Dict[str, Any] = dict(
     spec_max=SPEC_MAX_48K,
     seed=1234,
     # --- vocoder ---
+    vocoder="HifiGAN_NSF",  # vocoder_infer.py::get_vocoder_cls
     upsample_rates=(8, 8, 2, 2),
     upsample_kernel_sizes=(16, 16, 4, 4),
     upsample_initial_channel=512,
@@ -202,10 +209,12 @@ DEFAULTS: Dict[str, Any] = dict(
     save_best=True,
     milestone_interval=0,
     load_ckpt="",
-    # --- data ---
+    # --- data and work dirs ---
     binary_data_dir="data/binary/style",
+    work_dir="",
     train_set_name="train",
     valid_set_name="valid",
+    test_set_name="test",
     max_tokens=10000,
     max_sentences=100000,
     max_valid_tokens=60000,
@@ -214,14 +223,19 @@ DEFAULTS: Dict[str, Any] = dict(
     min_frames=0,
     max_input_tokens=2000,
     use_spk_embed=True,
+    # --- test split (training/test_runner.py) ---
+    save_gt=True,
+    gen_dir_name="",
 )
 
 
-# Vocoder GAN training (training/vocoder_task.py): keys the JAX package's
-# config does not hold and its vocoder task reads with ``cfg.get`` and these
-# defaults (``training/vocoder_task.py:62-68,82-87``);
-# tests/test_torch_config.py holds them against those defaults.
-VOCODER_TRAINING: Dict[str, Any] = dict(
+# Keys the JAX package's config does not hold and its modules read with
+# ``cfg.get`` and these defaults: the vocoder task's optimizer and loss
+# weights (``training/vocoder_task.py:62-68,82-87``) and the dataset's
+# ``test_ids`` (``data/dataset.py:41-44``), the items of the test split to
+# synthesize (None: all of them).  tests/test_torch_config.py holds them
+# against the JAX package's calls.
+READ_WITH_GET: Dict[str, Any] = dict(
     vocoder_lr=2e-4,
     vocoder_adam_b1=0.8,
     vocoder_adam_b2=0.99,
@@ -229,6 +243,7 @@ VOCODER_TRAINING: Dict[str, Any] = dict(
     lambda_fm=2.0,
     lambda_mel=45.0,
     lambda_ms_stft=0.0,
+    test_ids=None,
 )
 
 
@@ -242,10 +257,10 @@ RECIPES: Dict[str, Dict[str, Any]] = {
 
 
 def load_config(recipe: Optional[str] = None, **kwargs: Any) -> Config:
-    """Defaults (``DEFAULTS`` and ``VOCODER_TRAINING``) <-
-    ``RECIPES[recipe]`` <- keyword overrides.  The config defaults are ``load_config()``; the repo's recipe is
-    ``load_config(recipe="stylesinger")``."""
-    cfg = Config(json.loads(json.dumps({**DEFAULTS, **VOCODER_TRAINING})))
+    """Defaults (``DEFAULTS``, ``READ_WITH_GET``) <- ``RECIPES[recipe]``
+    <- keyword overrides.  The config defaults are ``load_config()``; the
+    repo's recipe is ``load_config(recipe="stylesinger")``."""
+    cfg = Config(json.loads(json.dumps({**DEFAULTS, **READ_WITH_GET})))
     if recipe is not None:
         if recipe not in RECIPES:
             raise KeyError(f"unknown recipe {recipe!r}; known: "

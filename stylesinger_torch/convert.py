@@ -20,11 +20,14 @@ generic.  Layout rules (flax -> torch):
 The LayerNorm eps differs between flax (1e-6) and torch (1e-5); the port
 builds every LayerNorm with eps=1e-6.
 
-A reference (AaronZ345/StyleSinger) HiFi-GAN checkpoint reaches the port
-through the JAX package's converter, copied here: :func:`load_torch_checkpoint`
-reads a ``model_ckpt_steps_N.ckpt``, :func:`convert_hifigan` folds its weight
-norm (``g * v / ||v||``) into the flax tree, and :func:`from_jax_params` maps
-that tree to the generator's ``state_dict``.
+A reference (AaronZ345/StyleSinger) checkpoint reaches the port through the
+JAX package's converters, copied here: :func:`load_torch_checkpoint` reads a
+``model_ckpt_steps_N.ckpt``; :func:`convert_stylesinger` (the acoustic
+model), :func:`convert_hifigan` (the NSF HiFi-GAN, weight norm ``g * v /
+||v||`` folded) and :func:`convert_ge2e_encoder` (a GE2E d-vector encoder,
+:func:`load_ge2e_checkpoint`) build the flax tree of the JAX module from the
+torch ``state_dict``, and :func:`from_jax_params` maps that tree to the
+port module's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -94,8 +97,8 @@ def from_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# Reference torch checkpoints (copy of stylesinger_tpu/convert.py:29-79,
-# :362-385, :648-657): torch state_dict -> flax tree
+# Reference torch checkpoints (copy of stylesinger_tpu/convert.py:29-437,
+# :648-657): torch state_dict -> flax tree
 # ---------------------------------------------------------------------------
 
 def _np(t) -> np.ndarray:
@@ -148,6 +151,257 @@ def convT1d_wn(sd: Mapping, name: str) -> Dict:
     return out
 
 
+def ln(sd: Mapping, name: str) -> Dict:
+    return {"scale": _np(sd[f"{name}.weight"]),
+            "bias": _np(sd[f"{name}.bias"])}
+
+
+def emb(sd: Mapping, name: str) -> Dict:
+    return {"embedding": _np(sd[f"{name}.weight"])}
+
+
+def convert_enc_sa_layer(sd: Mapping, p: str) -> Dict:
+    """Reference ``EncSALayer``: the fused ``in_proj_weight`` [3c, c] is the
+    qkv Dense kernel [c, 3c].  ``p`` like 'layers.0.op'."""
+    return {
+        "LayerNorm_0": ln(sd, f"{p}.layer_norm1"),
+        "MultiheadSelfAttention_0": {
+            "qkv": {"kernel": _np(sd[f"{p}.self_attn.in_proj_weight"]).T},
+            "out": {"kernel": _np(sd[f"{p}.self_attn.out_proj.weight"]).T},
+        },
+        "LayerNorm_1": ln(sd, f"{p}.layer_norm2"),
+        "TransformerFFN_0": {
+            "Conv_0": conv1d(sd, f"{p}.ffn.ffn_1"),
+            "LambdaDense_0": {"Dense_0": lin(sd, f"{p}.ffn.ffn_2")},
+        },
+    }
+
+
+def convert_fft_blocks(sd: Mapping, prefix: str, num_layers: int,
+                       use_pos_embed: bool = True,
+                       use_last_norm: bool = True) -> Dict:
+    """Reference ``FFTBlocks``: the layers, the positional scale and the
+    last LayerNorm where the checkpoint has them."""
+    sd = {k[len(prefix):]: v for k, v in sd.items()
+          if k.startswith(prefix)}
+    out: Dict[str, Any] = {}
+    for i in range(num_layers):
+        out[f"layer_{i}"] = convert_enc_sa_layer(sd, f"layers.{i}.op")
+    if use_pos_embed and "pos_embed_alpha" in sd:
+        out["pos_embed_alpha"] = _np(sd["pos_embed_alpha"])
+    if use_last_norm and "layer_norm.weight" in sd:
+        out["LayerNorm_0"] = ln(sd, "layer_norm")
+    return out
+
+
+def convert_fastspeech_encoder(sd: Mapping, prefix: str,
+                               num_layers: int) -> Dict:
+    return {"embed_tokens": emb(sd, f"{prefix}embed_tokens"),
+            "blocks": convert_fft_blocks(sd, prefix, num_layers,
+                                         use_pos_embed=False)}
+
+
+def _convert_conv_predictor(sd: Mapping, prefix: str, n_layers: int
+                            ) -> Dict:
+    """``conv.<i>`` = Sequential [pad, Conv1d, ReLU, LayerNorm, Dropout],
+    then ``linear``."""
+    out: Dict[str, Any] = {}
+    for i in range(n_layers):
+        out[f"conv_{i}"] = conv1d(sd, f"{prefix}conv.{i}.1")
+        out[f"ln_{i}"] = ln(sd, f"{prefix}conv.{i}.3")
+    out["out"] = lin(sd, f"{prefix}linear")
+    return out
+
+
+def convert_duration_predictor(sd: Mapping, prefix: str,
+                               n_layers: int = 2) -> Dict:
+    return _convert_conv_predictor(sd, prefix, n_layers)
+
+
+def convert_pitch_predictor(sd: Mapping, prefix: str,
+                            n_layers: int = 5) -> Dict:
+    out = _convert_conv_predictor(sd, prefix, n_layers)
+    if f"{prefix}pos_embed_alpha" in sd:
+        out["pos_embed_alpha"] = _np(sd[f"{prefix}pos_embed_alpha"])
+    return out
+
+
+def convert_wn(sd: Mapping, prefix: str, n_layers: int = 4,
+               has_cond: bool = False) -> Dict:
+    out: Dict[str, Any] = {}
+    for i in range(n_layers):
+        out[f"in_{i}"] = conv1d_wn(sd, f"{prefix}in_layers.{i}")
+        out[f"res_skip_{i}"] = conv1d_wn(sd, f"{prefix}res_skip_layers.{i}")
+    if has_cond:
+        out["cond"] = conv1d_wn(sd, f"{prefix}cond_layer")
+    return out
+
+
+def _channel_norm(sd: Mapping, name: str) -> Dict:
+    """A channel LayerNorm stored as ``gamma``/``beta`` [1, C, 1] or as
+    ``weight``/``bias``: flax's flat (scale, bias)."""
+    scale = sd.get(f"{name}.gamma", sd.get(f"{name}.weight"))
+    bias = sd.get(f"{name}.beta", sd.get(f"{name}.bias"))
+    return {"scale": _np(scale).reshape(-1), "bias": _np(bias).reshape(-1)}
+
+
+def convert_conv_blocks(sd: Mapping, prefix: str, n_dilations: int = 5,
+                        n_inner: int = 2) -> Dict:
+    """Reference ``ConvBlocks`` of the style encoder:
+    ``res_blocks.<i>.blocks.<j>`` = Sequential [LayerNorm(dim=1),
+    Conv1d(c -> 2c), Lambda, GELU, Conv1d(2c -> c, 1)]."""
+    out: Dict[str, Any] = {}
+    for i in range(n_dilations):
+        res: Dict[str, Any] = {}
+        for j in range(n_inner):
+            base = f"{prefix}res_blocks.{i}.blocks.{j}"
+            res[f"ln_{j}"] = _channel_norm(sd, f"{base}.0")
+            res[f"conv_a_{j}"] = conv1d(sd, f"{base}.1")
+            res[f"conv_b_{j}"] = conv1d(sd, f"{base}.4")
+        out[f"res_{i}"] = res
+    out["last_norm"] = _channel_norm(sd, f"{prefix}last_norm")
+    out["post"] = conv1d(sd, f"{prefix}post_net1")
+    return out
+
+
+def convert_rq(sd: Mapping, prefix: str, depth: int = 4) -> Dict:
+    """Reference ``RQBottleneck`` -> the codebook collection: each
+    codebook's last (padding) row is cut off; the EMA buffers as they
+    are."""
+    codebook: Dict[str, Any] = {}
+    for i in range(depth):
+        cb = f"{prefix}codebooks.{i}"
+        codebook[f"codebook_{i}"] = {
+            "embedding": _np(sd[f"{cb}.weight"])[:-1],
+            "cluster_size_ema": _np(sd[f"{cb}.cluster_size_ema"]),
+            "embed_ema": _np(sd[f"{cb}.embed_ema"]),
+        }
+    return codebook
+
+
+def convert_cross_atten_layer(sd: Mapping, p: str) -> Dict:
+    """Reference ``CrossAttenLayer``: torch ``nn.MultiheadAttention`` (its
+    ``in_proj`` split into q, k, v) + a post-norm FFN."""
+    w = _np(sd[f"{p}.multihead_attn.in_proj_weight"])  # [3c, c]
+    b = _np(sd[f"{p}.multihead_attn.in_proj_bias"])    # [3c]
+    c = w.shape[1]
+    mha = {name: {"kernel": w[i * c:(i + 1) * c].T,
+                  "bias": b[i * c:(i + 1) * c]}
+           for i, name in enumerate("qkv")}
+    mha["out"] = lin(sd, f"{p}.multihead_attn.out_proj")
+    return {"mha": mha, "linear1": lin(sd, f"{p}.linear1"),
+            "linear2": lin(sd, f"{p}.linear2"),
+            "norm1": ln(sd, f"{p}.norm1"), "norm2": ln(sd, f"{p}.norm2")}
+
+
+def convert_prosody_aligner(sd: Mapping, prefix: str,
+                            num_layers: int = 2) -> Dict:
+    return {f"layer_{i}": convert_cross_atten_layer(sd, f"{prefix}layers.{i}")
+            for i in range(num_layers)}
+
+
+def convert_local_style_adaptor(sd: Mapping, prefix: str, *,
+                                rq_depth: int = 4, wn_layers: int = 4,
+                                n_dilations: int = 5):
+    """(params, codebook) of the reference ``LocalStyleAdaptor``."""
+    params = {
+        "wavenet": convert_wn(sd, f"{prefix}wavenet.", n_layers=wn_layers),
+        "encoder": convert_conv_blocks(sd, f"{prefix}encoder.",
+                                       n_dilations=n_dilations),
+    }
+    codebook = {"rq": convert_rq(sd, f"{prefix}rqvae.", depth=rq_depth)}
+    return params, codebook
+
+
+def convert_umln(sd: Mapping, prefix: str) -> Dict:
+    return {"affine": lin(sd, f"{prefix}affine_layer.linear_layer")}
+
+
+def _convert_diff_residual(sd: Mapping, p: str) -> Dict:
+    return {
+        "dilated_conv": conv1d(sd, f"{p}.dilated_conv"),
+        "diffusion_projection": lin(sd, f"{p}.diffusion_projection"),
+        "conditioner_projection": conv1d(sd, f"{p}.conditioner_projection"),
+        "output_projection": conv1d(sd, f"{p}.output_projection"),
+    }
+
+
+def convert_diffnet(sd: Mapping, prefix: str, n_layers: int = 20) -> Dict:
+    """Reference ``DiffNet`` (the mel denoiser)."""
+    out: Dict[str, Any] = {
+        "input_projection": conv1d(sd, f"{prefix}input_projection"),
+        "mlp": {"fc1": lin(sd, f"{prefix}mlp.0"),
+                "fc2": lin(sd, f"{prefix}mlp.2")},
+        "skip_projection": conv1d(sd, f"{prefix}skip_projection"),
+        "output_projection": conv1d(sd, f"{prefix}output_projection"),
+    }
+    for i in range(n_layers):
+        out[f"residual_{i}"] = _convert_diff_residual(
+            sd, f"{prefix}residual_layers.{i}")
+    return out
+
+
+def convert_ddiffnet(sd: Mapping, prefix: str, n_layers: int = 10) -> Dict:
+    """Reference ``DDiffNet`` (an F0 denoiser): ``DiffNet`` + ``uv_embed``."""
+    out = convert_diffnet(sd, prefix, n_layers)
+    out["uv_embed"] = emb(sd, f"{prefix}uv_embed")
+    return out
+
+
+def convert_note_encoder(sd: Mapping, prefix: str) -> Dict:
+    return {"emb": emb(sd, f"{prefix}emb"),
+            "type_emb": emb(sd, f"{prefix}type_emb"),
+            "dur_ln": lin(sd, f"{prefix}dur_ln")}
+
+
+def convert_stylesinger(sd: Mapping, cfg: Any) -> Dict:
+    """Reference ``StyleSinger`` state_dict -> the flax ``variables``
+    ({'params': ..., 'codebook': ...}) of the JAX model, for
+    :func:`from_jax_params`.  The style adaptor's layer counts come from
+    ``style_wn_layers`` / ``style_conv_dilations`` (the reference's 4 and
+    5, which the JAX converter fixes)."""
+    c = cfg
+    params: Dict[str, Any] = {
+        "encoder": convert_fastspeech_encoder(sd, "encoder.",
+                                              c["enc_layers"]),
+        "note_encoder": convert_note_encoder(sd, "note_encoder."),
+        "spk_embed_proj": lin(sd, "spk_embed_proj"),
+        "dur_predictor": convert_duration_predictor(
+            sd, "dur_predictor.", c["dur_predictor_layers"]),
+        "pitch_embed": emb(sd, "pitch_embed"),
+        "decoder": {"blocks": convert_fft_blocks(
+            sd, "decoder.", c["dec_layers"], use_pos_embed=True)},
+        "mel_out": lin(sd, "mel_out"),
+    }
+    codebook: Dict[str, Any] = {}
+    if c["emo"]:
+        params["emo_embed_proj"] = lin(sd, "emo_embed_proj")
+    if c["umln"]:
+        params["norm"] = convert_umln(sd, "norm.")
+    if c["style"]:
+        lsa_p, lsa_cb = convert_local_style_adaptor(
+            sd, "style_extractor.", rq_depth=c["rq_depth"],
+            wn_layers=c.get("style_wn_layers", 4),
+            n_dilations=len(c.get("style_conv_dilations", (1,) * 5)))
+        params["style_extractor"] = lsa_p
+        codebook["style_extractor"] = lsa_cb
+        params["l1"] = lin(sd, "l1")
+        params["align"] = convert_prosody_aligner(
+            sd, "align.", c["aligner_layers"])
+    if c["f0_gen"] == "gmdiff":
+        for name in ("gm_diffnet", "gm_diffnet_inpainte"):
+            params[name] = convert_ddiffnet(sd, f"{name}.",
+                                            c["f0_residual_layers"])
+    else:
+        for name in ("pitch_predictor", "pitch_inpainter_predictor"):
+            params[name] = convert_pitch_predictor(sd, f"{name}.")
+    if c["decoder"] == "diffsinger":
+        params["ln_proj"] = lin(sd, "ln_proj")
+        params["postdiff"] = convert_diffnet(
+            sd, "postdiff.denoise_fn.", c["residual_layers"])
+    return {"params": params, "codebook": codebook}
+
+
 def convert_hifigan(sd: Mapping, cfg: Any) -> Dict:
     """Reference NSF ``HifiGanGenerator`` state_dict -> the flax tree of
     the JAX generator ({'params': ...}), for :func:`from_jax_params`."""
@@ -173,11 +427,56 @@ def convert_hifigan(sd: Mapping, cfg: Any) -> Dict:
     return {"params": params}
 
 
-def load_torch_checkpoint(path: str, child: Optional[str] = "model"):
+def load_torch_checkpoint(path: str, child: Optional[str] = "model",
+                          map_location: Any = "cpu"):
     """The flat state_dict of ``child`` in a reference
-    ``model_ckpt_steps_N.ckpt`` (its ``state_dict`` entry, by child)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ``model_ckpt_steps_N.ckpt`` (its ``state_dict`` entry, by child).  The
+    reference pickles more than tensors, so ``weights_only`` is off: load
+    only checkpoints from a source you trust."""
+    ckpt = torch.load(path, map_location=map_location, weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     if child is not None and child in sd:
         sd = sd[child]
     return dict(sd.items())
+
+
+def convert_ge2e_lstm(sd: Mapping, prefix: str = "lstm",
+                      num_layers: int = 3) -> Dict:
+    """torch ``nn.LSTM`` -> the flax ``OptimizedLSTMCell`` stack, one
+    ``lstm_<k>`` per layer: the gate rows (i, f, g, o) split per gate, and
+    torch's two biases added into flax's one (on the hidden side)."""
+    out: Dict[str, Any] = {}
+    for layer in range(num_layers):
+        w_ih = _np(sd[f"{prefix}.weight_ih_l{layer}"])
+        w_hh = _np(sd[f"{prefix}.weight_hh_l{layer}"])
+        b = (_np(sd[f"{prefix}.bias_ih_l{layer}"]) +
+             _np(sd[f"{prefix}.bias_hh_l{layer}"]))
+        h = w_hh.shape[1]
+        cell: Dict[str, Any] = {}
+        for gi, gate in enumerate(_GATES):
+            rows = slice(gi * h, (gi + 1) * h)
+            cell[f"i{gate}"] = {"kernel": w_ih[rows].T}
+            cell[f"h{gate}"] = {"kernel": w_hh[rows].T, "bias": b[rows]}
+        out[f"lstm_{layer}"] = cell
+    return out
+
+
+def convert_ge2e_encoder(sd: Mapping, num_layers: int = 3) -> Dict:
+    """GE2E d-vector encoder state_dict (3-layer LSTM(40 -> 256) +
+    linear(256 -> 256): the reference's emotion encoder ``global.pt`` and
+    resemblyzer's ``VoiceEncoder`` ``pretrained.pt`` alike) -> the flax
+    ``UtteranceEncoder`` variables."""
+    params = convert_ge2e_lstm(sd, "lstm", num_layers)
+    params["proj"] = lin(sd, "linear")
+    return {"params": params}
+
+
+def load_ge2e_checkpoint(path: str, map_location: Any = "cpu") -> Dict:
+    """A GE2E encoder checkpoint (.pt) converted to flax variables: the
+    ``{"model_state": sd, "step": N}`` wrapper of ``global.pt``, a bare
+    state_dict, or a pickled module."""
+    ckpt = torch.load(path, map_location=map_location, weights_only=False)
+    sd = ckpt.get("model_state", ckpt) if isinstance(ckpt, dict) else ckpt
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return convert_ge2e_encoder(sd)

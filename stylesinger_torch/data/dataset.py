@@ -34,6 +34,9 @@ class StyleSingerDataset:
             sizes = np.load(os.path.join(self.data_dir,
                                          f"{prefix}_lengths.npy"))
             self.avail_idxs = list(range(len(sizes)))
+            if prefix == "test" and cfg.get("test_ids"):
+                # the items of the test split to synthesize
+                self.avail_idxs = list(cfg["test_ids"])
             if prefix == "train" and cfg["min_frames"] > 0:
                 self.avail_idxs = [i for i in self.avail_idxs
                                    if sizes[i] >= cfg["min_frames"]]

@@ -6,6 +6,12 @@ emotion d-vectors (GE2E encoders); phones + notes -> ``StyleSinger``
 NSF HiFi-GAN (the MRF kernel on the blocked stages it takes,
 ``models/hifigan.py``) -> wav.
 
+Weights: :meth:`StyleSingerInfer.load_params` loads the acoustic model from
+a training run's work dir, a ``TrainState`` or a reference ``.ckpt``; the
+vocoder and the two encoders load from ``vocoder_ckpt``,
+``speaker_encoder_path`` and ``emotion_encoder_path`` when the instance is
+built.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no GPU it
 raises rather than fall back to the CPU.
 """
@@ -21,6 +27,10 @@ import torch
 import torch.nn as nn
 
 from stylesinger_torch.config import Config
+from stylesinger_torch.convert import (
+    convert_stylesinger, from_jax_params, load_ge2e_checkpoint,
+    load_torch_checkpoint,
+)
 from stylesinger_torch.dsp.mel import load_wav, wav2spec
 from stylesinger_torch.dsp.pitch import extract_pitch, norm_interp_f0_np
 from stylesinger_torch.models.diffusion import Noise
@@ -65,6 +75,18 @@ def init_random_(module: nn.Module, generator: torch.Generator,
 
 
 class StyleSingerInfer:
+    """Zero-shot synthesis with one acoustic model, vocoder and pair of
+    d-vector encoders on ``device``.
+
+    Every module holds its weights from construction on: the vocoder and
+    the encoders those of ``vocoder_ckpt``, ``speaker_encoder_path`` and
+    ``emotion_encoder_path`` where these are set (:meth:`_init_vocoder`,
+    :meth:`_init_encoders`), everything else its constructor's random
+    weights until :meth:`init_random` or :meth:`load_params`.  Nothing is
+    initialized lazily, so inference never re-randomizes what
+    :meth:`load_params` loaded (what the JAX package's ``_init_missing``
+    guards)."""
+
     def __init__(self, cfg: Config, phone_list: Optional[Sequence[str]] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
@@ -76,6 +98,8 @@ class StyleSingerInfer:
         self.emo_encoder = UtteranceEncoder()
         for m in self.modules():
             m.to(self.device).eval()
+        # the modules whose weights came from a configured file
+        self.from_files = self._init_vocoder() | self._init_encoders()
 
     def modules(self) -> List[nn.Module]:
         return [self.model, self.vocoder, self.spk_encoder, self.emo_encoder]
@@ -93,14 +117,81 @@ class StyleSingerInfer:
         return build_token_encoder(phone_list)
 
     def init_random(self, seed: Optional[int] = None) -> None:
-        """Random weights for every module from ``torch.Generator(seed)``;
-        the vocoder's convs use the JAX init's N(0, 0.01)."""
+        """Random weights from ``torch.Generator(seed)`` (default: the
+        config's ``seed``) for the acoustic model, and for the vocoder and
+        each encoder whose weights did not come from a configured file
+        (those keep them); the vocoder's convs use the JAX init's
+        N(0, 0.01)."""
         g = torch.Generator().manual_seed(
             int(self.cfg["seed"] if seed is None else seed))
         init_random_(self.model, g)
-        init_random_(self.vocoder, g, conv_std=0.01)
-        init_random_(self.spk_encoder, g)
-        init_random_(self.emo_encoder, g)
+        for name, conv_std in (("vocoder", 0.01), ("spk_encoder", None),
+                               ("emo_encoder", None)):
+            if name not in self.from_files:
+                init_random_(getattr(self, name), g, conv_std)
+
+    def _init_vocoder(self) -> set:
+        """The trained generator of ``vocoder_ckpt``
+        (``vocoder_infer.py::load_vocoder_state_dict``, which warns when
+        the path is missing); ``{"vocoder"}`` when it loaded, else an
+        empty set."""
+        from stylesinger_torch.vocoder_infer import load_vocoder_state_dict
+
+        sd = load_vocoder_state_dict(self.cfg, map_location=self.device)
+        if sd is None:
+            return set()
+        self.vocoder.load_state_dict(sd)
+        return {"vocoder"}
+
+    def _init_encoders(self) -> set:
+        """Pretrained GE2E weights for the speaker and emotion encoders from
+        ``speaker_encoder_path`` / ``emotion_encoder_path`` where the files
+        exist (the reference's zero-shot style transfer depends on them),
+        with a warning for a path that does not exist; the names of the
+        encoders that loaded."""
+        loaded = set()
+        for name, key, what in (
+                ("spk_encoder", "speaker_encoder_path", "speaker"),
+                ("emo_encoder", "emotion_encoder_path", "emotion")):
+            path = self.cfg.get(key) or ""
+            if path and os.path.exists(path):
+                getattr(self, name).load_state_dict(from_jax_params(
+                    load_ge2e_checkpoint(path, map_location=self.device)))
+                loaded.add(name)
+            elif path:
+                print(f"| WARN: {key} {path} not found; using random "
+                      f"{what}-encoder weights")
+        return loaded
+
+    def load_params(self, state_or_dir: Any) -> None:
+        """The acoustic model's weights (its parameters and RQ buffers) from
+        a ``TrainState``, from a work dir (the latest
+        ``ckpt/model_ckpt_steps_<N>.pt`` that ``Trainer.fit`` wrote; the
+        optimizer's state is not read), or from a reference
+        ``model_ckpt_steps_N.ckpt`` file (its ``model`` child, converted
+        by :func:`convert_stylesinger`).  Raises ``FileNotFoundError`` on a
+        work dir that holds no checkpoint."""
+        if not isinstance(state_or_dir, (str, os.PathLike)):
+            self.model.load_state_dict(state_or_dir.model.state_dict())
+            return
+        path = os.fspath(state_or_dir)
+        if path.endswith(".ckpt"):
+            sd = load_torch_checkpoint(path, map_location=self.device)
+            self.model.load_state_dict(from_jax_params(
+                convert_stylesinger(sd, self.cfg)))
+            return
+        from stylesinger_torch.training.checkpoint import (
+            latest_checkpoint, load_payload,
+        )
+
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(
+                f"no checkpoint under {path}/ckpt; refusing to synthesize "
+                "from random weights (train first, or pass a reference "
+                ".ckpt file)")
+        self.model.load_state_dict(load_payload(latest[1],
+                                                self.device)["model"])
 
     # --------------------------------------------------------- preprocess
     def preprocess_input(self, inp: Dict[str, Any]

@@ -1,32 +1,44 @@
-"""Command-line entry point of the port: the ``train`` and ``infer``
-commands of ``python -m stylesinger_tpu.run``.
+"""Command-line entry point of the port: the ``train``, ``infer`` and
+``test`` commands of ``python -m stylesinger_tpu.run``.
 
     python -m stylesinger_torch.run train [--recipe stylesinger] \\
         [--hparams 'binary_data_dir=data/binary/style,max_updates=1000'] \\
         [--exp_name stylesinger] [--work_dir_root checkpoints] [--device cuda]
-    python -m stylesinger_torch.run infer --ref_audio ref.wav --allow_random \\
-        [--recipe stylesinger] [--hparams 'f0_speedup=5,dpm_steps=10'] \\
-        [--out infer_out/test.wav] [--device cuda]
+    python -m stylesinger_torch.run infer --ref_audio ref.wav \\
+        [--exp_name stylesinger] [--work_dir_root checkpoints] \\
+        [--allow_random] [--recipe stylesinger] \\
+        [--hparams 'f0_speedup=5,dpm_steps=10'] [--out infer_out/test.wav]
+    python -m stylesinger_torch.run test [--exp_name stylesinger] \\
+        [--hparams 'binary_data_dir=data/binary/style,test_ids=[0,2]']
 
 The config is the defaults, the recipe ``--recipe`` of ``egs/`` (``RECIPES``
-in ``config.py``) and the ``--hparams`` overrides, in that order.
+in ``config.py``) and the ``--hparams`` overrides, in that order; its
+``work_dir`` is ``<work_dir_root>/<exp_name>``.
 
 ``train`` trains the acoustic model on the binarized corpus in
 ``binary_data_dir`` (its ``phone_set.json`` and the train and valid
-shards) into ``<work_dir_root>/<exp_name>``, where it writes
-``config.json``, ``metrics.jsonl`` and the checkpoints, and from whose
-latest checkpoint it resumes.
+shards) into the work dir, where it writes ``config.json``,
+``metrics.jsonl`` and the checkpoints, and from whose latest checkpoint it
+resumes.
 
 ``infer`` sings the JAX package's example phrase (``inference.py::
-example_run``) in the style of the reference clip ``--ref_audio`` and writes
-the wav.  It does not load a checkpoint yet, so, as the JAX command does
-without one, it refuses to synthesize from random weights unless
-``--allow_random`` is given; the weights are then seeded from the config's
-``seed``.
+example_run``) in the style of the reference clip ``--ref_audio`` with the
+work dir's latest checkpoint, and writes the wav.  Without a checkpoint it
+refuses to synthesize from random weights unless ``--allow_random`` is
+given; the weights are then seeded from the config's ``seed``.  The phone
+set is ``<binary_data_dir>/phone_set.json``, as in training; the vocoder
+and the d-vector encoders load from ``vocoder_ckpt``,
+``speaker_encoder_path`` and ``emotion_encoder_path``.
 
-Both run on ``--device`` (``cuda`` by default, which raises when there is
-no GPU).  The other commands of the JAX CLI (preprocess, binarize, test)
-wait for their slices.
+``test`` synthesizes the ``test_set_name`` split (the items ``test_ids``
+names, or all of them) with the work dir's latest checkpoint through
+``training/test_runner.py::TestRunner`` and the ``vocoder`` wrapper, into
+``<work_dir>/generated_<step>/``; ``python -m
+stylesinger_torch.eval.evaluate_gen`` scores that directory.
+
+All run on ``--device`` (``cuda`` by default, which raises when there is
+no GPU).  The other commands of the JAX CLI (preprocess, binarize,
+mfa-align) wait for their slices.
 """
 
 from __future__ import annotations
@@ -54,19 +66,26 @@ EXAMPLE = {
 def example_run(cfg, ref_audio: str, out_path: str = "infer_out/test.wav",
                 allow_random: bool = False, device: str = "cuda") -> str:
     """Synthesize :data:`EXAMPLE` in the style of ``ref_audio`` and write
-    it to ``out_path``; refuses random weights unless ``allow_random``."""
+    it to ``out_path``.  Loads the latest checkpoint of ``cfg['work_dir']``
+    when it has a ``ckpt/`` directory (raising when that holds no step);
+    refuses random weights unless ``allow_random``."""
     from stylesinger_torch.dsp.mel import save_wav
     from stylesinger_torch.inference import StyleSingerInfer
 
-    if not allow_random:
+    work_dir = cfg.get("work_dir") or ""
+    has_ckpt = os.path.isdir(os.path.join(work_dir, "ckpt"))
+    if not (has_ckpt or allow_random):
         raise FileNotFoundError(
-            "the port cannot load a checkpoint yet; refusing to synthesize "
-            "the demo from random weights (pass allow_random=True / "
-            "--allow_random)")
+            f"no checkpoint under {work_dir or '<unset work_dir>'}/ckpt; "
+            "refusing to synthesize the demo from random weights (train "
+            "first, or pass allow_random=True / --allow_random)")
     if not os.path.isfile(ref_audio):
         raise FileNotFoundError(f"reference clip {ref_audio} not found")
     infer = StyleSingerInfer(cfg, device=device)
-    infer.init_random()
+    if has_ckpt:
+        infer.load_params(work_dir)
+    else:
+        infer.init_random()
     wav = infer.infer_once(dict(EXAMPLE, ref_audio=ref_audio))
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     save_wav(wav, out_path, cfg["audio_sample_rate"])
@@ -101,9 +120,50 @@ def train(cfg, work_dir: str, device: str = "cuda"):
     return trainer.fit(EpochBatches(train_ds, cfg), valid_batches)
 
 
+def test(cfg, work_dir: str, device: str = "cuda") -> str:
+    """``run.py test``: the ``test_set_name`` split through
+    :class:`TestRunner` with the work dir's latest checkpoint; returns the
+    generation directory ``<work_dir>/generated_<step>``.  Raises
+    ``FileNotFoundError`` when the work dir holds no checkpoint."""
+    from stylesinger_torch.data.batching import BucketBatcher
+    from stylesinger_torch.data.dataset import StyleSingerDataset
+    from stylesinger_torch.inference import resolve_device
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.text import build_token_encoder
+    from stylesinger_torch.training.checkpoint import (
+        latest_checkpoint, load_payload,
+    )
+    from stylesinger_torch.training.test_runner import TestRunner
+    from stylesinger_torch.vocoder_infer import get_vocoder_cls
+
+    latest = latest_checkpoint(work_dir)
+    if latest is None:
+        raise FileNotFoundError(
+            f"no checkpoint under {work_dir}/ckpt; refusing to synthesize "
+            "test artifacts from random weights (train first with run.py "
+            "train, or point --work_dir_root / --exp_name at a trained "
+            "experiment)")
+    step, path = latest
+    device = resolve_device(device)
+    with open(os.path.join(cfg["binary_data_dir"], "phone_set.json")) as f:
+        encoder = build_token_encoder(json.load(f))
+    model = StyleSinger(cfg, len(encoder)).to(device)
+    model.load_state_dict(load_payload(path, device)["model"])
+    print(f"| restored checkpoint step {step}")
+    test_ds = StyleSingerDataset(cfg, cfg["test_set_name"])
+    batches = BucketBatcher(test_ds, cfg, shuffle=False,
+                            max_tokens=cfg["max_valid_tokens"],
+                            max_sentences=cfg["max_valid_sentences"]
+                            ).batches(0)
+    vocoder = get_vocoder_cls(cfg)(cfg, device=device)
+    runner = TestRunner(model, cfg, vocoder, work_dir,
+                        gen_dir_name=str(step))
+    return runner.run(batches)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser("stylesinger_torch")
-    ap.add_argument("command", choices=["train", "infer"])
+    ap.add_argument("command", choices=["train", "infer", "test"])
     ap.add_argument("--recipe", default=None,
                     help="a recipe of egs/ (config.py RECIPES), e.g. "
                     "stylesinger")
@@ -116,8 +176,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "sung")
     ap.add_argument("--out", default="infer_out/test.wav")
     ap.add_argument("--allow_random", action="store_true",
-                    help="synthesize from seeded random weights (the port "
-                    "cannot load a checkpoint yet)")
+                    help="infer only: permit the demo from seeded random "
+                    "weights when the work dir has no checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
@@ -125,16 +185,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from stylesinger_torch.config import load_config, parse_hparams
 
     cfg = load_config(args.recipe, **parse_hparams(args.hparams))
+    work_dir = os.path.join(args.work_dir_root, args.exp_name)
+    cfg["work_dir"] = work_dir
     if args.command == "train":
-        work_dir = os.path.join(args.work_dir_root, args.exp_name)
         state = train(cfg, work_dir, device=args.device)
         print(f"| trained to step {state.step}; checkpoints in {work_dir}")
         return 0
-    if args.ref_audio is None:
+    if args.command == "infer" and args.ref_audio is None:
         ap.error("infer needs --ref_audio")
     try:
-        out = example_run(cfg, args.ref_audio, out_path=args.out,
-                          allow_random=args.allow_random, device=args.device)
+        if args.command == "test":
+            out = test(cfg, work_dir, device=args.device)
+        else:
+            out = example_run(cfg, args.ref_audio, out_path=args.out,
+                              allow_random=args.allow_random,
+                              device=args.device)
     except FileNotFoundError as e:
         print(f"| ERROR: {e}", file=sys.stderr)
         return 2

@@ -47,6 +47,17 @@ def load_payload(path: str, device: Any = "cpu") -> Dict[str, Any]:
     return torch.load(path, map_location=device, weights_only=True)
 
 
+def latest_checkpoint(work_dir: str) -> Optional[Tuple[int, str]]:
+    """(step, path) of the latest ``ckpt/model_ckpt_steps_<step>.pt`` under
+    ``work_dir``; None when there is none.  Creates nothing."""
+    ckpt_dir = os.path.join(os.path.abspath(work_dir), "ckpt")
+    steps = _steps_in(ckpt_dir)
+    if not steps:
+        return None
+    return steps[-1], os.path.join(ckpt_dir,
+                                   f"model_ckpt_steps_{steps[-1]}.pt")
+
+
 class CheckpointManager:
     """Saves and restores :class:`TrainState` under ``<work_dir>``."""
 

@@ -29,7 +29,7 @@ import torch.nn as nn
 
 from stylesinger_torch.inference import resolve_device
 from stylesinger_torch.training.checkpoint import (
-    CheckpointManager, load_payload,
+    CheckpointManager, latest_checkpoint, load_payload,
 )
 from stylesinger_torch.training.schedules import check_diff_start_lr
 from stylesinger_torch.training.step import (
@@ -44,12 +44,11 @@ def warm_start_params(model: nn.Module, load_path: str) -> List[str]:
     ``load_ckpt``).  ``load_path`` is a checkpoint file or a work dir
     (its latest checkpoint).  Returns what was dropped."""
     if os.path.isdir(load_path):
-        mgr = CheckpointManager(load_path, save_best=False)
-        step = mgr.latest_step()
-        if step is None:
+        latest = latest_checkpoint(load_path)
+        if latest is None:
             raise FileNotFoundError(
                 f"load_ckpt: no checkpoint under {load_path}/ckpt")
-        load_path = mgr._path(step)
+        load_path = latest[1]
     loaded = load_payload(load_path)["model"]
     target = model.state_dict()
     merged, dropped = {}, []

@@ -6,7 +6,9 @@ HiFi-GAN generator, in one call (:meth:`HifiGAN_NSF.spec2wav`) or in
 crossfaded chunks of one shape (:meth:`HifiGAN_NSF.spec2wav_streaming`),
 and applies the spectral-subtraction denoiser when ``vocoder_denoise_c``
 > 0.  Its weights come from ``vocoder_ckpt`` (:func:`load_vocoder_state_dict`)
-when that is set.  The PWG, MelGAN and Griffin-Lim wrappers are not ported.
+when that is set.  :func:`get_vocoder_cls` picks the wrapper that
+``vocoder`` names (the JAX package's registry); the PWG, MelGAN and
+Griffin-Lim wrappers are not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Type, Union
 
 import numpy as np
 import torch
@@ -30,16 +32,18 @@ GAN_STATE_FILE = "gan_state.pt"   # fit_vocoder's whole GAN state
 GENERATOR_FILE = "generator.pt"   # fit_vocoder's trained generator
 
 
-def read_generator_file(path: str) -> Dict[str, torch.Tensor]:
+def read_generator_file(path: str, map_location: Any = "cpu"
+                        ) -> Dict[str, torch.Tensor]:
     """The generator's ``state_dict`` from one of the port's own files:
     ``generator.pt`` (the ``state_dict`` itself) or ``gan_state.pt`` (its
     ``gen`` entry)."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    payload = torch.load(path, map_location=map_location, weights_only=True)
     return payload["gen"] if os.path.basename(path) == GAN_STATE_FILE \
         else payload
 
 
-def load_vocoder_state_dict(cfg: Any) -> Optional[Dict[str, torch.Tensor]]:
+def load_vocoder_state_dict(cfg: Any, map_location: Any = "cpu"
+                            ) -> Optional[Dict[str, torch.Tensor]]:
     """The trained generator's ``state_dict`` from ``cfg['vocoder_ckpt']``
     (JAX ``vocoder_infer.py::load_vocoder_params``):
 
@@ -67,9 +71,9 @@ def load_vocoder_state_dict(cfg: Any) -> Optional[Dict[str, torch.Tensor]]:
         path = max(refs, key=lambda p: int(re.findall(
             r"steps_(\d+)", os.path.basename(p))[0]))
     if path.endswith(".ckpt"):
-        return from_jax_params(convert_hifigan(
-            load_torch_checkpoint(path, child="model_gen"), cfg))
-    return read_generator_file(path)
+        return from_jax_params(convert_hifigan(load_torch_checkpoint(
+            path, child="model_gen", map_location=map_location), cfg))
+    return read_generator_file(path, map_location)
 
 
 class HifiGAN_NSF:
@@ -90,7 +94,7 @@ class HifiGAN_NSF:
         self.seed = seed
         if model is None:
             model = HifiGanGenerator(cfg)
-            sd = load_vocoder_state_dict(cfg)
+            sd = load_vocoder_state_dict(cfg, map_location=self.device)
             if sd is None:
                 init_random_(model, torch.Generator().manual_seed(seed),
                              conv_std=0.01)
@@ -154,3 +158,19 @@ class HifiGAN_NSF:
                 break
             pos = s + step
         return out / np.maximum(weight, 1e-8)
+
+
+VOCODERS: Dict[str, Type[HifiGAN_NSF]] = {"HifiGAN_NSF": HifiGAN_NSF}
+# registered in the JAX package, not ported yet: the ROADMAP item of each
+UNPORTED_VOCODERS = {"PWG": "queue 1, item 9", "MelGAN": "queue 1, item 9",
+                     "GriffinLim": "queue 1, item 8"}
+
+
+def get_vocoder_cls(cfg: Any) -> Type[HifiGAN_NSF]:
+    """The wrapper class that ``cfg['vocoder']`` names."""
+    name = cfg["vocoder"]
+    if name in UNPORTED_VOCODERS:
+        raise NotImplementedError(
+            f"stylesinger_torch does not port the {name} vocoder yet "
+            f"(ROADMAP.md {UNPORTED_VOCODERS[name]})")
+    return VOCODERS[name]

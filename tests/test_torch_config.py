@@ -8,7 +8,8 @@ import pytest
 from stylesinger_tpu.config import load_config as jax_load_config
 
 from stylesinger_torch.config import (
-    DEFAULTS, RECIPES, VOCODER_TRAINING, load_config, parse_hparams,
+    DEFAULTS, READ_WITH_GET, RECIPES, load_config,
+    parse_hparams,
 )
 
 
@@ -50,15 +51,18 @@ def test_hparams_parse_as_the_jax_cli_does():
         parse_hparams("mesh_shape.data=2")
 
 
-def test_vocoder_training_keys_are_the_jax_tasks_get_defaults():
-    """The JAX package's config has no vocoder-training keys; its vocoder
-    task reads them with ``cfg.get(key, default)``.  Recorded from its own
-    calls (the state's init traced, not run): every key and default of
-    ``VOCODER_TRAINING``, and ``load_config`` carries them."""
+def test_vocoder_training_keys_are_the_jax_tasks_get_defaults(tmp_path):
+    """The JAX package's config has neither the vocoder-training keys nor
+    ``test_ids``; its vocoder task and its dataset (on the test split) read
+    them with ``cfg.get(key, default)``.  Recorded from their own calls
+    (the vocoder state's init traced, not run): every key and default of
+    ``READ_WITH_GET``, and ``load_config`` carries them."""
     import jax
     import jax.numpy as jnp
+    import numpy as np
 
     from stylesinger_tpu.config import tiny_test_config
+    from stylesinger_tpu.data.dataset import StyleSingerDataset
     from stylesinger_tpu.training import vocoder_task as jvt
 
     seen = {}
@@ -73,7 +77,8 @@ def test_vocoder_training_keys_are_the_jax_tasks_get_defaults():
     jax.eval_shape(lambda: jvt.init_vocoder_state(
         cfg, jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
         jnp.zeros((1, 8))))
-    assert not set(VOCODER_TRAINING) & set(jax_load_config(None))
-    assert {k: seen[k] for k in VOCODER_TRAINING if k in seen} == \
-        VOCODER_TRAINING
-    assert {k: load_config()[k] for k in VOCODER_TRAINING} == VOCODER_TRAINING
+    np.save(tmp_path / "test_lengths.npy", np.asarray([20, 30]))
+    StyleSingerDataset(cfg, "test", data_dir=str(tmp_path))
+    assert not set(READ_WITH_GET) & set(jax_load_config(None))
+    assert {k: seen[k] for k in READ_WITH_GET} == READ_WITH_GET
+    assert {k: load_config()[k] for k in READ_WITH_GET} == READ_WITH_GET

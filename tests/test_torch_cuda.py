@@ -366,3 +366,81 @@ def test_tiny_gan_iteration_on_the_card_matches_cpu(cuda):
         steady = g_all[n].abs() >= 1e-6
         diff = (p_gpu[n].detach().cpu() - p.detach()).abs()
         assert (diff[steady] <= 0.05 * lr).all(), n
+
+
+def _tiny_serving_files(root):
+    """A work dir checkpoint, a ``generator.pt`` and a GE2E file of seeded
+    weights at ``tiny_test_config``, and the config naming them."""
+    from stylesinger_torch.models.encoders import UtteranceEncoder
+    from stylesinger_torch.models.stylesinger import StyleSinger
+
+    cfg = tiny_test_config(hop_size=64, mrf_block=64)
+    model = StyleSinger(cfg, 10)
+    init_random_(model, torch.Generator().manual_seed(1))
+    (root / "ckpt").mkdir()
+    torch.save({"model": model.state_dict(), "step": 3},
+               root / "ckpt" / "model_ckpt_steps_3.pt")
+    gen = HifiGanGenerator(cfg)
+    init_random_(gen, torch.Generator().manual_seed(2), conv_std=0.05)
+    torch.save(gen.state_dict(), root / "generator.pt")
+    enc = UtteranceEncoder()
+    init_random_(enc, torch.Generator().manual_seed(3))
+    torch.save({"model_state": {k.replace("proj.", "linear."): v
+                                for k, v in enc.state_dict().items()}},
+               root / "ge2e.pt")
+    return cfg.replace(vocoder_ckpt=str(root / "generator.pt"),
+                       speaker_encoder_path=str(root / "ge2e.pt"),
+                       emotion_encoder_path=str(root / "ge2e.pt"))
+
+
+@pytest.mark.cuda
+def test_load_params_on_the_card_equals_the_cpu_load(cuda, tmp_path):
+    """The work dir's checkpoint, the vocoder and the GE2E encoders,
+    loaded straight onto the card, are the CPU load bit for bit."""
+    from stylesinger_torch.inference import StyleSingerInfer
+
+    cfg = _tiny_serving_files(tmp_path)
+    loaded = []
+    for device in ("cpu", cuda):
+        infer = StyleSingerInfer(cfg, phone_list=list("abcdefg"),
+                                 device=device)
+        infer.load_params(str(tmp_path))
+        loaded.append(infer)
+    for a, b in zip(*(m.modules() for m in loaded)):
+        sb = b.state_dict()
+        assert a.state_dict().keys() == sb.keys()
+        for k, v in a.state_dict().items():
+            assert sb[k].is_cuda and torch.equal(sb[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_evaluate_pair_on_the_card_matches_cpu(cuda, tmp_path):
+    """The card's ``evaluate_pair`` (two mel-kernel launches) against the
+    CPU's (the plain twin): the log-mels within the mel tolerance, the MCD
+    within what that tolerance allows it, the FFE within one frame."""
+    from stylesinger_torch.dsp.mel import load_wav, save_wav, wav2spec
+    from stylesinger_torch.eval.evaluate_gen import evaluate_pair
+
+    sr = 48000
+    t = np.arange(sr) / sr
+    gt = 0.3 * np.sin(2 * np.pi * 220 * t + 2 * np.sin(2 * np.pi * 5 * t))
+    pred = 0.3 * np.sin(2 * np.pi * 240 * t) * (t < 0.7)
+    save_wav(gt, str(tmp_path / "gt.wav"), sr)
+    save_wav(pred, str(tmp_path / "pred.wav"), sr)
+    args = (str(tmp_path / "pred.wav"), str(tmp_path / "gt.wav"), sr)
+    melk.counter.reset()
+    card = evaluate_pair(*args, device=cuda)
+    assert melk.counter.count == 2
+    cpu = evaluate_pair(*args, device="cpu")
+    tol = dict(atol=3e-3, rtol=2e-3)
+    worst = 0.0
+    for fn in args[:2]:
+        wav = load_wav(fn, sr)
+        mel_card = wav2spec(wav, cuda)["mel"].cpu()
+        mel_cpu = wav2spec(wav, torch.device("cpu"))["mel"]
+        assert torch.allclose(mel_card, mel_cpu, **tol)
+        worst = max(worst, float(mel_cpu.abs().max()))
+    k = 10.0 / math.log(10.0) * math.sqrt(2.0)
+    mcd_bound = 2 * k * math.sqrt(80) * (tol["atol"] + tol["rtol"] * worst)
+    assert abs(card["mcd"] - cpu["mcd"]) <= mcd_bound
+    assert abs(card["ffe"] - cpu["ffe"]) <= 1.0 / (sr // 256)

@@ -51,7 +51,10 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.training.schedules",
                      "stylesinger_torch.training.step",
                      "stylesinger_torch.training.trainer",
-                     "stylesinger_torch.training.vocoder_task"):
+                     "stylesinger_torch.training.vocoder_task",
+                     "stylesinger_torch.training.test_runner",
+                     "stylesinger_torch.eval.metrics",
+                     "stylesinger_torch.eval.evaluate_gen"):
         assert expected in names
 
 

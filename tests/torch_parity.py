@@ -15,6 +15,9 @@
   rate were 0.
 - :func:`one_torch_thread`: a module fixture that runs torch on one
   intra-op thread.
+- :func:`reference_stylesinger_sd`: a reference-layout ``StyleSinger``
+  state dict from the JAX model's flax variables, the inverse of
+  ``stylesinger_tpu/convert.py::convert_stylesinger``.
 """
 
 from __future__ import annotations
@@ -277,22 +280,176 @@ def to_np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1):
-    """One request through the JAX package's ``StyleSingerInfer`` (model +
-    vocoder under one ``jax.jit``) and through the port's, with the same
-    seeded weights and JAX's draws replayed into the port.  Returns a dict:
-    ``ret``/``wav`` (JAX), ``tret``/``twav`` (port), ``noise`` (the replay,
-    empty when every draw was used), ``cfg`` and ``ti``."""
+def _layers(tree, stem):
+    """The indices of ``<stem><i>`` children, in order."""
+    return sorted(int(k[len(stem):]) for k in tree
+                  if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def reference_stylesinger_sd(variables, channel_norm: str = "gamma"):
+    """A state dict in the reference (AaronZ345/StyleSinger) layout of
+    ``StyleSinger`` from the JAX model's flax ``variables``, by inverting
+    the layout rules of ``stylesinger_tpu/convert.py::convert_stylesinger``:
+    Dense kernels transposed, conv kernels [k, in, out] -> [out, in, k], the
+    self-attention's qkv kernel and the aligner's q/k/v fused into
+    ``in_proj_*``, the style WaveNet's convs weight-normed (``weight_v`` the
+    kernel, ``weight_g`` its norm), a padding row under each codebook, and
+    the style encoder's channel norms as ``gamma``/``beta`` [1, C, 1]
+    (``channel_norm="gamma"``) or ``weight``/``bias``."""
+    p = variables["params"]
+    sd = {}
+
+    def put(name, a):
+        sd[name] = torch.tensor(np.ascontiguousarray(np.asarray(a,
+                                                                np.float32)))
+
+    def lin(name, leaf):
+        put(f"{name}.weight", np.asarray(leaf["kernel"]).T)
+        if "bias" in leaf:
+            put(f"{name}.bias", leaf["bias"])
+
+    def conv(name, leaf, weight_norm=False):
+        w = np.asarray(leaf["kernel"]).transpose(2, 1, 0)
+        if weight_norm:
+            put(f"{name}.weight_v", w)
+            put(f"{name}.weight_g", np.sqrt(
+                (w.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True)))
+        else:
+            put(f"{name}.weight", w)
+        if "bias" in leaf:
+            put(f"{name}.bias", leaf["bias"])
+
+    def ln(name, leaf):
+        put(f"{name}.weight", leaf["scale"])
+        put(f"{name}.bias", leaf["bias"])
+
+    def channel_ln(name, leaf):
+        if channel_norm == "gamma":
+            put(f"{name}.gamma", np.asarray(leaf["scale"])[None, :, None])
+            put(f"{name}.beta", np.asarray(leaf["bias"])[None, :, None])
+        else:
+            ln(name, leaf)
+
+    def emb(name, leaf):
+        put(f"{name}.weight", leaf["embedding"])
+
+    def fft_blocks(prefix, blocks):
+        for i in _layers(blocks, "layer_"):
+            lay, q = blocks[f"layer_{i}"], f"{prefix}layers.{i}.op"
+            attn = lay["MultiheadSelfAttention_0"]
+            ln(f"{q}.layer_norm1", lay["LayerNorm_0"])
+            put(f"{q}.self_attn.in_proj_weight",
+                np.asarray(attn["qkv"]["kernel"]).T)
+            put(f"{q}.self_attn.out_proj.weight",
+                np.asarray(attn["out"]["kernel"]).T)
+            ln(f"{q}.layer_norm2", lay["LayerNorm_1"])
+            conv(f"{q}.ffn.ffn_1", lay["TransformerFFN_0"]["Conv_0"])
+            lin(f"{q}.ffn.ffn_2",
+                lay["TransformerFFN_0"]["LambdaDense_0"]["Dense_0"])
+        if "pos_embed_alpha" in blocks:
+            put(f"{prefix}pos_embed_alpha", blocks["pos_embed_alpha"])
+        if "LayerNorm_0" in blocks:
+            ln(f"{prefix}layer_norm", blocks["LayerNorm_0"])
+
+    def conv_predictor(prefix, tree):
+        for i in _layers(tree, "conv_"):
+            conv(f"{prefix}conv.{i}.1", tree[f"conv_{i}"])
+            ln(f"{prefix}conv.{i}.3", tree[f"ln_{i}"])
+        lin(f"{prefix}linear", tree["out"])
+        if "pos_embed_alpha" in tree:
+            put(f"{prefix}pos_embed_alpha", tree["pos_embed_alpha"])
+
+    def diffnet(prefix, tree):
+        conv(f"{prefix}input_projection", tree["input_projection"])
+        if "uv_embed" in tree:
+            emb(f"{prefix}uv_embed", tree["uv_embed"])
+        lin(f"{prefix}mlp.0", tree["mlp"]["fc1"])
+        lin(f"{prefix}mlp.2", tree["mlp"]["fc2"])
+        conv(f"{prefix}skip_projection", tree["skip_projection"])
+        conv(f"{prefix}output_projection", tree["output_projection"])
+        for i in _layers(tree, "residual_"):
+            r, q = tree[f"residual_{i}"], f"{prefix}residual_layers.{i}"
+            conv(f"{q}.dilated_conv", r["dilated_conv"])
+            lin(f"{q}.diffusion_projection", r["diffusion_projection"])
+            conv(f"{q}.conditioner_projection", r["conditioner_projection"])
+            conv(f"{q}.output_projection", r["output_projection"])
+
+    emb("encoder.embed_tokens", p["encoder"]["embed_tokens"])
+    fft_blocks("encoder.", p["encoder"]["blocks"])
+    fft_blocks("decoder.", p["decoder"]["blocks"])
+    ne = p["note_encoder"]
+    emb("note_encoder.emb", ne["emb"])
+    emb("note_encoder.type_emb", ne["type_emb"])
+    lin("note_encoder.dur_ln", ne["dur_ln"])
+    for name in ("spk_embed_proj", "emo_embed_proj", "l1", "ln_proj",
+                 "mel_out"):
+        if name in p:
+            lin(name, p[name])
+    emb("pitch_embed", p["pitch_embed"])
+    conv_predictor("dur_predictor.", p["dur_predictor"])
+    for name in ("pitch_predictor", "pitch_inpainter_predictor"):
+        if name in p:
+            conv_predictor(f"{name}.", p[name])
+    if "norm" in p:
+        lin("norm.affine_layer.linear_layer", p["norm"]["affine"])
+    if "style_extractor" in p:
+        wn = p["style_extractor"]["wavenet"]
+        for i in _layers(wn, "in_"):
+            conv(f"style_extractor.wavenet.in_layers.{i}", wn[f"in_{i}"],
+                 weight_norm=True)
+            conv(f"style_extractor.wavenet.res_skip_layers.{i}",
+                 wn[f"res_skip_{i}"], weight_norm=True)
+        enc = p["style_extractor"]["encoder"]
+        for i in _layers(enc, "res_"):
+            for j in _layers(enc[f"res_{i}"], "ln_"):
+                q = f"style_extractor.encoder.res_blocks.{i}.blocks.{j}"
+                channel_ln(f"{q}.0", enc[f"res_{i}"][f"ln_{j}"])
+                conv(f"{q}.1", enc[f"res_{i}"][f"conv_a_{j}"])
+                conv(f"{q}.4", enc[f"res_{i}"][f"conv_b_{j}"])
+        channel_ln("style_extractor.encoder.last_norm", enc["last_norm"])
+        conv("style_extractor.encoder.post_net1", enc["post"])
+        rq = variables["codebook"]["style_extractor"]["rq"]
+        for i in _layers(rq, "codebook_"):
+            cb, q = rq[f"codebook_{i}"], f"style_extractor.rqvae.codebooks.{i}"
+            table = np.asarray(cb["embedding"])
+            put(f"{q}.weight", np.concatenate(
+                [table, np.zeros_like(table[:1])]))
+            put(f"{q}.cluster_size_ema", cb["cluster_size_ema"])
+            put(f"{q}.embed_ema", cb["embed_ema"])
+        for i in _layers(p["align"], "layer_"):
+            lay, q = p["align"][f"layer_{i}"], f"align.layers.{i}"
+            mha = lay["mha"]
+            put(f"{q}.multihead_attn.in_proj_weight", np.concatenate(
+                [np.asarray(mha[n]["kernel"]).T for n in "qkv"]))
+            put(f"{q}.multihead_attn.in_proj_bias", np.concatenate(
+                [np.asarray(mha[n]["bias"]) for n in "qkv"]))
+            lin(f"{q}.multihead_attn.out_proj", mha["out"])
+            for name in ("linear1", "linear2"):
+                lin(f"{q}.{name}", lay[name])
+            for name in ("norm1", "norm2"):
+                ln(f"{q}.{name}", lay[name])
+    for name in ("gm_diffnet", "gm_diffnet_inpainte"):
+        if name in p:
+            diffnet(f"{name}.", p[name])
+    if "postdiff" in p:
+        diffnet("postdiff.denoise_fn.", p["postdiff"])
+    return sd
+
+
+def write_reference_ckpt(path: str, variables, **kwargs) -> str:
+    """``variables`` as a reference ``model_ckpt_steps_N.ckpt`` file
+    (``{"state_dict": {"model": sd}}``)."""
+    torch.save({"state_dict": {"model": reference_stylesinger_sd(
+        variables, **kwargs)}, "global_step": 100}, path)
+    return path
+
+
+def acoustic_variables(ji, seed: int):
+    """Seeded numpy variables of the JAX ``StyleSingerInfer``'s acoustic
+    model, shaped by its training-path init, with the duration head's bias
+    at log(5): random weights give ~0-frame phones, this ~4 frames."""
     import jax.numpy as jnp
 
-    from stylesinger_tpu.config import tiny_test_config
-    from stylesinger_tpu.inference import StyleSingerInfer as JaxInfer
-    from stylesinger_torch.config import tiny_test_config as torch_tiny
-    from stylesinger_torch.convert import from_jax_params
-    from stylesinger_torch.inference import StyleSingerInfer
-
-    cfg = tiny_test_config(**cfg_kwargs)
-    ji = JaxInfer(cfg, phone_list=phones)
     ex = ji._example_inputs()
     t_ref = ex["ref_mels"].shape[1]
     keys = {k: jax.random.PRNGKey(n) for n, k in enumerate(
@@ -303,8 +460,33 @@ def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1):
         ex["ref_mels"], ex["ref_f0"], jnp.full((1, t_ref), 8.0),
         jnp.zeros((1, t_ref)), ex["note"], ex["note_dur"], ex["note_type"],
         infer=False, use_rq=True, forcing=False, use_diff=True, seed=seed)
-    # random weights give ~0-frame phones: make phones ~4 frames long
     av["params"]["dur_predictor"]["out"]["bias"][:] = np.log(5.0)
+    return av
+
+
+def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1,
+                   ckpt_dir=None):
+    """One request through the JAX package's ``StyleSingerInfer`` (model +
+    vocoder under one ``jax.jit``) and through the port's, with the same
+    seeded weights and JAX's draws replayed into the port.  With
+    ``ckpt_dir``, the acoustic weights are written there as a reference
+    ``.ckpt`` file that both sides read through ``load_params``.  Returns a
+    dict: ``ret``/``wav`` (JAX), ``tret``/``twav`` (port), ``noise`` (the
+    replay, empty when every draw was used), ``draws`` (all of them, in
+    order), ``jax_batch``, ``cfg``, ``ti`` and ``ji``."""
+    import jax.numpy as jnp
+
+    from stylesinger_tpu.config import tiny_test_config
+    from stylesinger_tpu.inference import StyleSingerInfer as JaxInfer
+    from stylesinger_torch.config import tiny_test_config as torch_tiny
+    from stylesinger_torch.convert import from_jax_params
+    from stylesinger_torch.inference import StyleSingerInfer
+
+    cfg = tiny_test_config(**cfg_kwargs)
+    ji = JaxInfer(cfg, phone_list=phones)
+    keys = {k: jax.random.PRNGKey(n) for n, k in enumerate(
+        ["params", "dropout", "umln", "rq", "diffusion", "noise"])}
+    av = acoustic_variables(ji, seed)
     vv = random_variables(
         ji.vocoder.init, {"params": keys["params"], "noise": keys["noise"]},
         jnp.zeros((1, 16, cfg["audio_num_mel_bins"])),
@@ -315,6 +497,12 @@ def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1):
                           jnp.zeros((1, 160, 40)), seed=seed + 3)
     ji.variables, ji.voc_variables = av, vv
     ji.spk_variables, ji.emo_variables = sv, ev
+    ckpt = None
+    if ckpt_dir is not None:
+        ckpt = write_reference_ckpt(
+            os.path.join(ckpt_dir, "model_ckpt_steps_100.ckpt"), av)
+        ji.load_params(ckpt)
+        av = ji.variables
     jax_batch = ji.preprocess_input(request)
     voc_kinds, names = [], {}
 
@@ -354,13 +542,18 @@ def inference_pair(cfg_kwargs: dict, phones, request: dict, seed: int = 1):
     tcfg = torch_tiny(**{k: v for k, v in cfg_kwargs.items()
                          if k != "mrf_pallas"})
     ti = StyleSingerInfer(tcfg, phone_list=phones, device="cpu")
-    for module, variables in ((ti.model, av), (ti.vocoder, vv),
-                              (ti.spk_encoder, sv), (ti.emo_encoder, ev)):
+    for module, variables in ((ti.vocoder, vv), (ti.spk_encoder, sv),
+                              (ti.emo_encoder, ev)):
         module.load_state_dict(from_jax_params(variables))
+    if ckpt is None:
+        ti.model.load_state_dict(from_jax_params(av))
+    else:
+        ti.load_params(ckpt)
     tb = {k: torch.as_tensor(v) for k, v in jax_batch.items()}
     noise = Replay(draws)
     with torch.no_grad():
         tret = ti.model(**tb, noise=noise)
         twav = ti.vocoder(tret["mel_out"], tret["f0_denorm"], noise)
     return dict(cfg=cfg, ret=ret, wav=wav, tret=tret, twav=twav,
-                noise=noise, ti=ti, sampler=names["sh"])
+                noise=noise, draws=draws, jax_batch=jax_batch, ti=ti, ji=ji,
+                sampler=names["sh"])
