@@ -104,7 +104,26 @@ Phases, each printed on its own line with its elapsed seconds:
      ground-truth mel, each bf16 MRF stage and the wav against the plain
      bf16 twin within 2 bf16 ulps of max|y|; seconds per item and per
      pair;
-7. device time per call of each kernel and its twin at the shapes of
+7. ``data prep``: a raw corpus to training shards at the recipe's audio
+   settings (48 kHz, fft 1024, hop 256, 80 mels, both GE2E encoders from
+   seeded files, ``write_tsd``): 32 seeded 4-12 s PCM16 wavs by three
+   singers (a harmonic voice on one MIDI note per phone, hanzi lyrics;
+   one singer the test split, 3 items the valid split) through
+   ``Preprocessor`` and ``StyleSingingBinarizer`` on the card, 1 mel launch
+   per binarized item (35: the valid items are train items too), with
+   items/s, audio seconds per second, each stage's seconds and the peak
+   memory; 4 items binarized on the CPU against the card's (tokens,
+   ``mel2ph`` and lengths exactly, the mel at the mel tolerance, voicing on
+   >= 99.5 % of frames, voiced F0 within 1e-3 relative, d-vectors within
+   1e-4); the mel kernel against its twin at the shortest and longest
+   item, with its time per call there; every shard read back through the
+   C++ TSD reader, and batch assembly timed with it and with the plain
+   reader; ``run.py preprocess`` and ``run.py binarize`` in their own
+   processes, their shards against the in-process ones; 4 steps of
+   ``run.py train`` (``run.main``, in process, so that the launch counts
+   can be read: none) on those shards, with a checkpoint and finite
+   losses;
+8. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
@@ -1775,6 +1794,383 @@ def phase_test_split(t0, torch, np, train, inputs):
             f"{check['err']:.3e} > {check['tol']:.3e}")
 
 
+# ------------------------------------------------------------- data prep
+
+# common hanzi for the corpus's lyrics (each in the zh processor's table)
+LYRIC_CHARS = ("我你他的是在了不有人这中大为上个国和地到以说时要就出会可也对"
+               "生能而子那得于着下自之年过发后作里用道行所然家种事成方多经去"
+               "法学如都同现当没动面起看定天分还进好小部其些主样理心她本前开"
+               "但因只从想实日军者意无力它与长把机十民第公此已工使情明性知全"
+               "三又关点正业外将两高间由问很最重并物手应战向头文体政美相见被"
+               "月亮代表风花雪夜春秋歌唱梦光星海山河云雨爱情恋思念")
+DATA_SINGERS = ("alto", "tenor", "soprano")   # soprano: the test singer
+DATA_ITEMS = 32
+DATA_VALID = ("alto_03", "tenor_04", "alto_09")  # valid_prefixes
+F0_REL_TOL = 1e-3       # voiced F0, card against CPU (relative)
+F0_VOICING_AGREE = 0.995
+DVEC_TOL = 1e-4
+
+
+def singing_corpus(np, root: Path, n: int, seed: int):
+    """A raw corpus of ``n`` 48 kHz PCM16 mono items of 4-12 s by three
+    singers under ``root/raw``: each a harmonic voice (8 partials,
+    vibrato, note-wise envelope, a little noise) on a MIDI note (55-75)
+    per phone, with hanzi ``txt`` and no ``ph``, whose ``ph_durs`` split
+    the wav's length among the zh processor's phones, and GTSinger's MIDI
+    streams.  Returns (raw dir, rows)."""
+    from stylesinger_torch.dsp.mel import save_wav
+    from stylesinger_torch.text_processors import get_txt_processor_cls
+
+    rng = np.random.default_rng(seed)
+    proc = get_txt_processor_cls("zh")
+    sr = 48000
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    rows = []
+    for i in range(n):
+        singer = DATA_SINGERS[i % 3]
+        name = f"{singer}_{i:02d}"
+        txt = "".join(rng.choice(list(LYRIC_CHARS),
+                                 int(rng.integers(8, 25))))
+        n_ph = len(proc.process(txt)[0])
+        dur = float(rng.uniform(4.0, 12.0))
+        w = rng.uniform(0.5, 1.5, n_ph)
+        ph_durs = (w / w.sum() * dur).tolist()
+        notes = rng.integers(55, 76, n_ph)
+        t = np.arange(int(round(dur * sr))) / sr
+        idx = np.minimum(np.searchsorted(np.cumsum(ph_durs), t,
+                                         side="right"), n_ph - 1)
+        f0 = 440.0 * 2 ** ((notes[idx] - 69) / 12) * (
+            1 + 0.01 * np.sin(2 * np.pi * 5.5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        amps = rng.uniform(0.2, 1.0, 8) / np.arange(1, 9)
+        wav = sum(a * np.sin((h + 1) * phase) for h, a in enumerate(amps))
+        onset = t - np.concatenate([[0.0], np.cumsum(ph_durs)])[idx]
+        env = np.minimum(1.0, onset / 0.02) * np.minimum(
+            1.0, np.minimum(t, dur - t) / 0.05)
+        wav = 0.3 * wav * env / np.abs(wav).max() + \
+            0.002 * rng.standard_normal(len(t))
+        wav_fn = str(raw / f"{name}.wav")
+        save_wav(wav.astype(np.float32), wav_fn, sr)
+        rows.append(dict(item_name=name, txt=txt, wav_fn=wav_fn,
+                         singer=singer, ph_durs=ph_durs,
+                         ep_pitches=notes.tolist(), ep_notedurs=ph_durs,
+                         ep_types=[2] * n_ph))
+    with open(raw / "metadata.json", "w") as f:
+        json.dump(rows, f, ensure_ascii=False)
+    return raw, rows
+
+
+def _shard_items(path):
+    from stylesinger_torch.data.indexed_dataset import IndexedDataset
+
+    ds = IndexedDataset(str(path))
+    items = [ds[i] for i in range(len(ds))]
+    ds.close()
+    return items
+
+
+def _float_diff(np, a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) -
+                        np.asarray(b, np.float64)).max())
+
+
+def phase_data_prep(t0, torch, np, root: Path):
+    """Raw corpus -> ``metadata.json`` -> shards -> ``run.py train`` at the
+    recipe's audio settings (48 kHz, fft 1024, hop 256, 80 mels, both GE2E
+    encoders, ``with_wav`` / ``with_spk_embed`` / ``with_emotion`` /
+    ``write_tsd`` on), with every check of the phase."""
+    from stylesinger_torch import run
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.data import native_loader
+    from stylesinger_torch.data.binarize import StyleSingingBinarizer
+    from stylesinger_torch.data.preprocess import Preprocessor
+    from stylesinger_torch.data.tsd_dataset import (
+        PrefetchBatcher, TsdStyleSingerDataset,
+    )
+    from stylesinger_torch.dsp.mel import load_wav
+    from stylesinger_torch.dsp.pitch import norm_interp_f0_np
+    from stylesinger_torch.kernels import mel as melk
+
+    data = root / "data"
+    raw, rows = singing_corpus(np, data, DATA_ITEMS, SEED + 7)
+    audio_s = sum(sum(r["ph_durs"]) for r in rows)
+    keys = dict(
+        raw_data_dir=str(raw),
+        speaker_encoder_path=ge2e_file(torch, data / "pretrained.pt",
+                                       SEED + 8),
+        emotion_encoder_path=ge2e_file(torch, data / "global.pt", SEED + 9),
+        test_prefixes=[DATA_SINGERS[2]], valid_prefixes=list(DATA_VALID))
+
+    def cfg_for(side):
+        return load_config(recipe="stylesinger", **keys,
+                           processed_data_dir=str(data / side / "processed"),
+                           binary_data_dir=str(data / side / "binary"))
+
+    cfg = cfg_for("inproc")
+    require(cfg["write_tsd"] and all(cfg["binarization_args"][k] for k in (
+        "with_wav", "with_spk_embed", "with_emotion")),
+        "data prep: the recipe's binarization switches are off")
+    tb = time.perf_counter()
+    native_loader.load_native()
+    tsd_build_s = time.perf_counter() - tb
+    say("data prep corpus", t0, items=len(rows), audio_s=f"{audio_s:.1f}",
+        singers=len(DATA_SINGERS), test=DATA_SINGERS[2],
+        valid=",".join(DATA_VALID), tsd_reader_build_s=f"{tsd_build_s:.2f}",
+        built=native_loader.build_seconds() is not None)
+
+    # -- preprocess and binarize in process, on the card
+    tp = time.perf_counter()
+    processed = Preprocessor(cfg).process(rows)
+    pre_s = time.perf_counter() - tp
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    tb = time.perf_counter()
+    binarizer = StyleSingingBinarizer(cfg, device="cuda")
+    binarizer.process()
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - tb
+    launches = {k: c.count for k, c in counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    binary = Path(cfg["binary_data_dir"])
+    splits = {p: _shard_items(binary / p) for p in ("valid", "test", "train")}
+    n_bin = sum(len(v) for v in splits.values())
+    stages = {k: round(v, 3) for k, v in sorted(
+        binarizer.stage_seconds.items())}
+    say("data prep binarize", t0, preprocess_s=f"{pre_s:.2f}",
+        binarize_s=f"{bin_s:.2f}", wavs=len(rows), items_binarized=n_bin,
+        splits="/".join(f"{p}:{len(v)}" for p, v in splits.items()),
+        items_per_s=f"{n_bin / bin_s:.3f}",
+        audio_s_per_s=f"{sum(it['sec'] for v in splits.values() for it in v) / bin_s:.2f}",
+        mel_launches=launches["mel_spectrogram"],
+        mrf_launches=launches["fused_mrf_blocks"] +
+        launches["fused_mrf_blocks_bf16"],
+        peak_gib=f"{peak / 2 ** 30:.3f}",
+        peak_above_start_gib=f"{(peak - before) / 2 ** 30:.3f}",
+        stage_s=json.dumps(stages))
+    # every item is binarized once per split it is in: the valid items are
+    # in train too (train is every name not in test), as in JAX
+    require(n_bin == len(rows) + len(DATA_VALID),
+            f"data prep: {n_bin} items binarized")
+    require(launches["mel_spectrogram"] == n_bin,
+            f"data prep: {launches['mel_spectrogram']} mel launches for "
+            f"{n_bin} items binarized")
+    require(launches["fused_mrf_blocks"] + launches[
+        "fused_mrf_blocks_bf16"] == 0, "data prep: the MRF kernel ran")
+    for items in splits.values():
+        for it in items:
+            require(all(not isinstance(v, torch.Tensor) for v in it.values())
+                    and it["mel"].shape == (it["len"], 80)
+                    and it["mel"].dtype == np.float32
+                    and it["mel2ph"].dtype == np.int64
+                    and np.isfinite(it["mel"]).all()
+                    and np.isfinite(it["f0"]).all()
+                    and it["spk_embed"].shape == it["emo_embed"].shape
+                    == (256,) and (it["f0"] > 0).mean() > 0.5
+                    and it["mel2ph"].max() == len(it["ph_token"]),
+                    f"data prep: item {it['item_name']} is malformed")
+
+    # -- the card against the CPU on 4 items
+    by_name = {it["item_name"]: it for it in splits["train"]}
+    pick = sorted(by_name)[:4]
+    cpu_cfg = cfg_for("cpu")
+    cpu_cfg["test_prefixes"] = cpu_cfg["valid_prefixes"] = []
+    cpu_processed = Path(cpu_cfg["processed_data_dir"])
+    cpu_processed.mkdir(parents=True)
+    with open(cpu_processed / "metadata.json", "w") as f:
+        json.dump([r for r in processed if r["item_name"] in pick], f,
+                  ensure_ascii=False)
+    (cpu_processed / "phone_set.json").write_bytes(
+        (Path(cfg["processed_data_dir"]) / "phone_set.json").read_bytes())
+    tc = time.perf_counter()
+    StyleSingingBinarizer(cpu_cfg, device="cpu").process()
+    cpu_s = time.perf_counter() - tc
+    worst = dict(mel=0.0, f0_rel=0.0, dvec=0.0, voicing=1.0)
+    mel_ok = True
+    for it in _shard_items(Path(cpu_cfg["binary_data_dir"]) / "train"):
+        card = by_name[it["item_name"]]
+        for k in ("ph_token", "mel2ph", "len", "wav", "sec"):
+            require(np.array_equal(np.asarray(card[k]), np.asarray(it[k])),
+                    f"data prep: {k} of {it['item_name']} differs on the "
+                    "card")
+        mel_ok &= bool(np.allclose(card["mel"], it["mel"], **MEL_TOL))
+        worst["mel"] = max(worst["mel"], _float_diff(np, card["mel"],
+                                                     it["mel"]))
+        va, vb = card["f0"] > 0, it["f0"] > 0
+        worst["voicing"] = min(worst["voicing"], float((va == vb).mean()))
+        both = va & vb
+        worst["f0_rel"] = max(worst["f0_rel"], float(np.max(
+            np.abs(card["f0"][both] - it["f0"][both]) / it["f0"][both])))
+        for k in ("spk_embed", "emo_embed"):
+            worst["dvec"] = max(worst["dvec"], _float_diff(np, card[k],
+                                                           it[k]))
+    say("data prep card vs cpu", t0, items=len(pick), cpu_s=f"{cpu_s:.2f}",
+        mel_err=f"{worst['mel']:.3e}", mel_tol="atol3e-3/rtol2e-3",
+        voicing_agree=f"{worst['voicing']:.4f}",
+        voicing_min=F0_VOICING_AGREE, f0_rel_err=f"{worst['f0_rel']:.3e}",
+        f0_rel_tol=F0_REL_TOL, dvec_err=f"{worst['dvec']:.3e}",
+        dvec_tol=DVEC_TOL)
+    require(mel_ok, f"data prep: the card's mel differs from the CPU's by "
+            f"{worst['mel']:.3e}")
+    require(worst["voicing"] >= F0_VOICING_AGREE and
+            worst["f0_rel"] <= F0_REL_TOL and worst["dvec"] <= DVEC_TOL,
+            f"data prep: card against CPU {worst}")
+
+    # -- the mel kernel against its twin at the corpus's shortest and
+    #    longest items, with its time per call there
+    lengths = sorted((sum(r["ph_durs"]), r["wav_fn"]) for r in rows)
+    for label, (_, wav_fn) in (("shortest", lengths[0]),
+                               ("longest", lengths[-1])):
+        wav = torch.as_tensor(load_wav(wav_fn, 48000), device="cuda")
+        consts = melk._constants(48000, 1024, 1024, 80, 20.0, 24000.0,
+                                 wav.device)
+        kw = dict(sample_rate=48000, n_fft=1024, hop_size=256,
+                  win_length=1024, n_mels=80, fmin=20.0, fmax=24000.0)
+        call = functools.partial(melk.mel_spectrogram, wav, **kw)
+        plain = functools.partial(melk.mel_spectrogram_plain, wav, *consts,
+                                  256, 1e-6)
+        out, ref = call(), plain()
+        err = float((out - ref).abs().max())
+        ok = bool(torch.allclose(out, ref, **MEL_TOL))
+        ms, plain_ms = time_ms(torch, call), time_ms(torch, plain)
+        torch.cuda.synchronize()
+        n_frames = out.shape[0]
+        flops = n_frames * (2.5 * 1024 * math.log2(1024) + 2.0 * 513 * 80)
+        nbytes = 4.0 * (wav.numel() + 1024 + 513 * 80 + n_frames * 80)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        say(f"data prep mel {label}", t0, frames=n_frames,
+            max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+            bound_by=b_by)
+        require(ok, f"data prep: the mel kernel disagrees at {n_frames} "
+                f"frames ({err:.3e})")
+
+    # -- TSD read-back through the C++ reader
+    c = cfg
+    for prefix, items in splits.items():
+        reader = native_loader.TsdReader(str(binary / prefix))
+        require(len(reader) == len(items), f"data prep: {prefix}.tsidx "
+                f"holds {len(reader)} items")
+        for i, it in enumerate(items):
+            for k, v in it.items():
+                # the writer stores a scalar as a 1-element array, as JAX's
+                arr = np.atleast_1d(np.asarray(v))
+                if arr.dtype.kind in "USO" or isinstance(v, bool):
+                    continue
+                require(np.array_equal(reader.field(i, k), arr),
+                        f"data prep: TSD {prefix}[{i}].{k} differs")
+            f0, uv = norm_interp_f0_np(it["f0"], pitch_norm=c["pitch_norm"],
+                                       use_uv=c["use_uv"],
+                                       f0_mean=c["f0_mean"],
+                                       f0_std=c["f0_std"])
+            require(np.array_equal(reader.field(i, "f0_norm"), f0) and
+                    np.array_equal(reader.field(i, "uv"), uv),
+                    f"data prep: TSD {prefix}[{i}] f0_norm / uv differ")
+        reader.close()
+    batch_ms = {}
+    for plain in (False, True):
+        ds = TsdStyleSingerDataset(c, str(binary / "train"), plain=plain)
+        idx_batches = PrefetchBatcher(ds, c)._index_batches(0)
+        ds.batch(idx_batches[0])
+        tb = time.perf_counter()
+        for _ in range(3):
+            for idxs in idx_batches:
+                ds.batch(idxs)
+        batch_ms["plain" if plain else "cpp"] =             1e3 * (time.perf_counter() - tb) / (3 * len(idx_batches))
+    th = time.perf_counter()
+    n_batches = 0
+    for batch in PrefetchBatcher(TsdStyleSingerDataset(
+            c, str(binary / "train")), c, device="cuda").batches(0):
+        require(all(v.is_cuda for v in batch.values()),
+                "data prep: a prefetched batch is not on the card")
+        n_batches += 1
+    torch.cuda.synchronize()
+    say("data prep tsd", t0, splits=len(splits), batches=len(idx_batches),
+        batch_ms_cpp=f"{batch_ms['cpp']:.3f}",
+        batch_ms_plain=f"{batch_ms['plain']:.3f}",
+        epoch_to_card_ms=f"{1e3 * (time.perf_counter() - th):.1f}",
+        epoch_batches=n_batches)
+
+    # -- once through the CLI, into a second directory
+    cli = cfg_for("cli")
+    hp = ",".join(f"{k}={json.dumps(v) if isinstance(v, list) else v}"
+                  for k, v in dict(keys, processed_data_dir=cli[
+                      "processed_data_dir"], binary_data_dir=cli[
+                      "binary_data_dir"]).items())
+    for cmd in (["preprocess"], ["binarize", "--device", "cuda"]):
+        tc = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "stylesinger_torch.run", *cmd,
+             "--recipe", "stylesinger", "--hparams", hp], cwd=str(REPO),
+            capture_output=True, text=True, timeout=600)
+        require(out.returncode == 0, f"data prep: run.py {cmd[0]} failed: "
+                f"{out.stderr[-2000:]}")
+        say(f"data prep cli {cmd[0]}", t0,
+            seconds=f"{time.perf_counter() - tc:.2f}")
+    cli_binary = Path(cli["binary_data_dir"])
+    require(sorted(os.listdir(cli_binary)) == sorted(os.listdir(binary)),
+            "data prep: the CLI wrote other files")
+    # the same device, weights and inputs: the floats should be bit for
+    # bit; a last-bit difference would come from a library choosing
+    # another algorithm per process, so they are held at 1e-5
+    bit_exact, close, diffs = True, True, {}
+    for prefix, items in splits.items():
+        for a, b in zip(_shard_items(cli_binary / prefix), items):
+            require(sorted(a) == sorted(b), "data prep: CLI item keys differ")
+            for k in a:
+                if k in ("mel", "f0", "spk_embed", "emo_embed"):
+                    diffs[k] = max(diffs.get(k, 0.0),
+                                   _float_diff(np, a[k], b[k]))
+                    bit_exact &= bool(np.array_equal(a[k], b[k]))
+                    close &= bool(np.allclose(a[k], b[k], rtol=1e-5,
+                                              atol=1e-5))
+                elif k != "wav_fn":
+                    require(np.array_equal(np.asarray(a[k]),
+                                           np.asarray(b[k])),
+                            f"data prep: CLI {prefix} {k} differs")
+    say("data prep cli vs in-process", t0, bit_exact=bit_exact,
+        max_abs_diff=json.dumps({k: f"{v:.3e}" for k, v in diffs.items()}),
+        tol="atol1e-5/rtol1e-5")
+    require(close, f"data prep: the CLI's shards differ from the in-process "
+            f"ones {diffs}")
+
+    # -- train on the CLI's shards
+    work = data / "work"
+    for ctr in counters().values():
+        ctr.reset()
+    tt = time.perf_counter()
+    rc = run.main(["train", "--recipe", "stylesinger", "--hparams",
+                   f"binary_data_dir={cli_binary},max_updates=4,"
+                   "tb_log_interval=1,val_check_interval=4",
+                   "--exp_name", "port_shards", "--work_dir_root",
+                   str(work)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - tt
+    train_launches = {k: v.count for k, v in counters().items()}
+    with open(work / "port_shards" / "metrics.jsonl") as f:
+        metrics = [json.loads(line) for line in f]
+    train_rows = [m for m in metrics if m["prefix"] == "train"]
+    losses = {k: v for m in metrics for k, v in m.items()
+              if k not in ("step", "prefix", "steps_per_sec")}
+    ckpts = sorted(os.listdir(work / "port_shards" / "ckpt"))
+    say("data prep train", t0, rc=rc, steps=len(train_rows),
+        step_ms=",".join(f"{1e3 / m['steps_per_sec']:.1f}"
+                         for m in train_rows),
+        total_loss=",".join(f"{m['total_loss']:.4f}" for m in train_rows),
+        seconds=f"{train_s:.2f}", ckpt=",".join(ckpts),
+        launches=json.dumps(train_launches),
+        note="acoustic training launches neither kernel")
+    require(rc == 0 and len(train_rows) == 4 and ckpts and
+            all(math.isfinite(v) for v in losses.values()),
+            f"data prep: training on the port's shards failed "
+            f"(rc {rc}, {len(train_rows)} steps, {ckpts})")
+    require(not any(train_launches.values()),
+            f"data prep: training launched a kernel {train_launches}")
+
+
 def mrf_against_plain_bf16(torch, np, cfg, item):
     """The trained generator (``vocoder_ckpt``, bf16) on ``item``'s mel
     and f0, on the card, twice: through the MRF kernel, recording each
@@ -1876,6 +2272,7 @@ def main() -> int:
             phase_checkpoint_infer(t0, torch, np, train, inputs, wav_np)
             phase_test_split(t0, torch, np, train, inputs)
             del train
+            phase_data_prep(t0, torch, np, root)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

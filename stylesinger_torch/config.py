@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
 ported modules read (model, training, data), ``apply_spec_stats`` and
-``tiny_test_config``, and ``READ_WITH_GET``, the keys that the JAX
-package's vocoder task and dataset read with ``cfg.get``.  No YAML reader
+``tiny_test_config``, and ``READ_WITH_GET`` / ``READ_WITH_GET_DATA``, the
+keys that the JAX package's vocoder task, dataset and data CLI read with
+``cfg.get``.  No YAML reader
 is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for each
 recipe of ``egs/``, the keys the port reads where the recipe and its bases
 differ from the defaults, and ``load_config(recipe=..., **overrides)``
@@ -211,6 +212,28 @@ DEFAULTS: Dict[str, Any] = dict(
     load_ckpt="",
     # --- data and work dirs ---
     binary_data_dir="data/binary/style",
+    # raw corpus -> processed metadata.json (run.py preprocess): a
+    # registered meta adapter (pre_align_cls: lj / emotion / libritts /
+    # vctk) reads raw_data_dir, or raw_data_dir/metadata.json is read; the
+    # language picks the text processor
+    processed_data_dir="data/processed/style",
+    raw_data_dir="",
+    pre_align_cls="",
+    language="zh",
+    # binarizer (run.py binarize, data/binarize.py): item names holding one
+    # of these substrings go to the valid / test split (test names leave
+    # train)
+    valid_prefixes=[],
+    test_prefixes=[],
+    binarization_args=dict(
+        with_align=True, with_f0=True, with_spk_embed=True, with_emotion=True,
+        with_wav=True, shuffle=False, trim_eos_bos=False, trim_sil=False,
+    ),
+    pitch_extractor="autocorr",
+    # kept so that configs carry over from the JAX package, where it pins
+    # the binarizer to the host CPU; the port's binarize runs on --device
+    # (the mel kernel, the F0 tracker and the GE2E encoders on the card)
+    binarize_platform="cpu",
     work_dir="",
     train_set_name="train",
     valid_set_name="valid",
@@ -247,20 +270,37 @@ READ_WITH_GET: Dict[str, Any] = dict(
 )
 
 
+# Keys the JAX package's config does not hold and its data CLI reads with
+# ``cfg.get`` and these defaults: the binarizer's class
+# (``run.py:154-156``) and whether it also writes the TSD shards
+# (``data/binarize.py:211``).  ``binarizer_cls`` names a class path;
+# ``data/binarize.py::resolve_binarizer_cls`` maps the JAX package's name
+# to the port's own class without importing the module it names.
+READ_WITH_GET_DATA: Dict[str, Any] = dict(
+    binarizer_cls="stylesinger_tpu.data.binarize.StyleSingingBinarizer",
+    write_tsd=True,
+)
+
+
 # The keys the port reads where a recipe of ``egs/`` (with its bases)
 # differs from DEFAULTS; tests/test_torch_config.py holds each against the
 # JAX package's ``load_config("egs/<name>.yaml")``.
 RECIPES: Dict[str, Dict[str, Any]] = {
     # egs/stylesinger.yaml
-    "stylesinger": dict(vocoder_compute_dtype="bfloat16"),
+    "stylesinger": dict(
+        vocoder_compute_dtype="bfloat16",
+        binarizer_cls="stylesinger_tpu.data.binarize.StyleSingingBinarizer",
+        write_tsd=True),
 }
 
 
 def load_config(recipe: Optional[str] = None, **kwargs: Any) -> Config:
-    """Defaults (``DEFAULTS``, ``READ_WITH_GET``) <- ``RECIPES[recipe]``
+    """Defaults (``DEFAULTS``, ``READ_WITH_GET``, ``READ_WITH_GET_DATA``)
+    <- ``RECIPES[recipe]``
     <- keyword overrides.  The config defaults are ``load_config()``; the
     repo's recipe is ``load_config(recipe="stylesinger")``."""
-    cfg = Config(json.loads(json.dumps({**DEFAULTS, **READ_WITH_GET})))
+    cfg = Config(json.loads(json.dumps(
+        {**DEFAULTS, **READ_WITH_GET, **READ_WITH_GET_DATA})))
     if recipe is not None:
         if recipe not in RECIPES:
             raise KeyError(f"unknown recipe {recipe!r}; known: "

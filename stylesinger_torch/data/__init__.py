@@ -1,2 +1,3 @@
-"""Training data: the binarized shards, the dataset and the static-shape
-batcher (port of ``stylesinger_tpu/data``)."""
+"""Training data: preprocess and binarize (raw corpus -> shards), the
+pickled and TSD shards, the datasets and the static-shape batchers (port
+of ``stylesinger_tpu/data``)."""

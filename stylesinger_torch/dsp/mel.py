@@ -132,10 +132,16 @@ def wav2spec(wav: Union[np.ndarray, torch.Tensor], device: torch.device, *,
              sample_rate: int = 48000, n_fft: int = 1024,
              hop_size: int = 256, win_length: int = 1024, n_mels: int = 80,
              fmin: float = 20.0, fmax: float = 24000.0,
-             eps: float = 1e-6) -> dict:
+             eps: float = 1e-6, loud_norm: bool = False) -> dict:
     """Counterpart of ``wav2spec_np``: {'wav': numpy wav padded to
-    n_frames*hop, 'mel': [N, n_mels] tensor on ``device``}."""
+    n_frames*hop, 'mel': [N, n_mels] tensor on ``device``}.  ``loud_norm``
+    first gains the wav to -23 LUFS (BS.1770, ``dsp/loudness.py``, on the
+    host), as ``wav2spec_np`` does."""
     wav_np = np.asarray(torch.as_tensor(wav).cpu().numpy(), np.float32)
+    if loud_norm:
+        from stylesinger_torch.dsp.loudness import normalize_loudness
+
+        wav_np = normalize_loudness(wav_np, sample_rate, target_lufs=-23.0)
     mel = wav2mel(torch.as_tensor(wav_np, device=device),
                   sample_rate=sample_rate, n_fft=n_fft, hop_size=hop_size,
                   win_length=win_length, n_mels=n_mels, fmin=fmin,

@@ -1,6 +1,13 @@
-"""Command-line entry point of the port: the ``train``, ``infer`` and
-``test`` commands of ``python -m stylesinger_tpu.run``.
+"""Command-line entry point of the port: the commands of ``python -m
+stylesinger_tpu.run``.
 
+    python -m stylesinger_torch.run preprocess [--recipe stylesinger] \\
+        [--hparams 'raw_data_dir=raw,processed_data_dir=data/processed/x'] \\
+        [--mfa]
+    python -m stylesinger_torch.run mfa-align [--hparams ...]
+    python -m stylesinger_torch.run binarize [--recipe stylesinger] \\
+        [--hparams 'processed_data_dir=...,binary_data_dir=...'] \\
+        [--device cuda]
     python -m stylesinger_torch.run train [--recipe stylesinger] \\
         [--hparams 'binary_data_dir=data/binary/style,max_updates=1000'] \\
         [--exp_name stylesinger] [--work_dir_root checkpoints] [--device cuda]
@@ -14,6 +21,21 @@
 The config is the defaults, the recipe ``--recipe`` of ``egs/`` (``RECIPES``
 in ``config.py``) and the ``--hparams`` overrides, in that order; its
 ``work_dir`` is ``<work_dir_root>/<exp_name>``.
+
+``preprocess`` turns a raw corpus into ``<processed_data_dir>/
+metadata.json`` and ``phone_set.json``: its rows come from the meta adapter
+``pre_align_cls`` names (``lj``, ``emotion``, ``libritts``, ``vctk``) over
+``raw_data_dir``, or from ``<raw_data_dir>/metadata.json`` (default: the
+processed dir's), and the text processor of ``language`` gives the phones
+of rows that have none.  ``--mfa`` also lays out the Montreal Forced
+Aligner corpus; ``mfa-align`` runs ``mfa train`` on it, and refuses with a
+message when ``mfa`` is not installed.
+
+``binarize`` writes the training shards of ``processed_data_dir`` into
+``binary_data_dir`` with the class ``binarizer_cls`` names
+(``data/binarize.py``; the JAX package's name resolves to the port's
+class): the log-mel through the mel kernel, the F0 tracker and the two GE2E
+encoders run on ``--device``.
 
 ``train`` trains the acoustic model on the binarized corpus in
 ``binary_data_dir`` (its ``phone_set.json`` and the train and valid
@@ -36,9 +58,9 @@ names, or all of them) with the work dir's latest checkpoint through
 ``<work_dir>/generated_<step>/``; ``python -m
 stylesinger_torch.eval.evaluate_gen`` scores that directory.
 
-All run on ``--device`` (``cuda`` by default, which raises when there is
-no GPU).  The other commands of the JAX CLI (preprocess, binarize,
-mfa-align) wait for their slices.
+``binarize``, ``train``, ``infer`` and ``test`` run on ``--device``
+(``cuda`` by default, which raises when there is no GPU); ``preprocess``
+and ``mfa-align`` are host work.
 """
 
 from __future__ import annotations
@@ -161,9 +183,71 @@ def test(cfg, work_dir: str, device: str = "cuda") -> str:
     return runner.run(batches)
 
 
+def preprocess(cfg, mfa: bool = False) -> list:
+    """``run.py preprocess``: the raw rows (a meta adapter's, or
+    ``metadata.json``'s) through :class:`Preprocessor` into
+    ``processed_data_dir``; with ``mfa`` also the MFA corpus.  Returns the
+    processed rows."""
+    from stylesinger_torch.data.preprocess import Preprocessor, load_meta_data
+
+    raw_dir = cfg.get("raw_data_dir") or cfg["processed_data_dir"]
+    adapter = cfg.get("pre_align_cls", "")
+    if adapter:
+        items = load_meta_data(adapter, raw_dir)
+    else:
+        meta_fn = os.path.join(raw_dir, "metadata.json")
+        if not os.path.exists(meta_fn):
+            raise SystemExit(
+                f"| ERROR: no meta adapter (cfg pre_align_cls) and no "
+                f"{meta_fn}; nothing to preprocess")
+        with open(meta_fn) as f:
+            items = json.load(f)
+    pre = Preprocessor(cfg, language=cfg.get("language", "zh"))
+    rows = pre.process(items, out_dir=cfg["processed_data_dir"])
+    if mfa:
+        mfa_dir = pre.build_mfa_inputs(rows,
+                                       out_dir=cfg["processed_data_dir"])
+        print(f"| wrote MFA corpus at {mfa_dir}")
+    return rows
+
+
+def mfa_align(cfg) -> str:
+    """``run.py mfa-align``: Montreal Forced Aligner's ``mfa train`` over
+    the corpus ``preprocess --mfa`` laid out; returns the TextGrid
+    directory.  Exits with a message when the corpus or ``mfa`` is
+    missing, as the JAX CLI does."""
+    import shutil
+    import subprocess
+
+    out_dir = cfg["processed_data_dir"]
+    mfa_dir = os.path.join(out_dir, "mfa_inputs")
+    dict_fn = os.path.join(out_dir, "mfa_dict.txt")
+    tg_dir = os.path.join(out_dir, "mfa_outputs")
+    if not (os.path.isdir(mfa_dir) and os.path.exists(dict_fn)):
+        raise SystemExit(
+            f"| ERROR: no MFA corpus at {mfa_dir} — run "
+            "`run.py preprocess --mfa` first")
+    mfa_bin = shutil.which("mfa")
+    if mfa_bin is None:
+        raise SystemExit(
+            "| ERROR: Montreal Forced Aligner (`mfa`) is not installed "
+            "in this environment. Install it (conda install -c "
+            "conda-forge montreal-forced-aligner), then rerun; the "
+            "corpus layout + dictionary are ready at "
+            f"{mfa_dir} / {dict_fn}")
+    n_jobs = int(os.getenv("N_PROC", os.cpu_count() or 1))
+    cmd = [mfa_bin, "train", "--clean", "-j", str(n_jobs), mfa_dir, dict_fn,
+           tg_dir]
+    print("| running:", " ".join(cmd))
+    subprocess.check_call(cmd)
+    print(f"| wrote TextGrids at {tg_dir}")
+    return tg_dir
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser("stylesinger_torch")
-    ap.add_argument("command", choices=["train", "infer", "test"])
+    ap.add_argument("command", choices=["train", "binarize", "infer",
+                                        "test", "preprocess", "mfa-align"])
     ap.add_argument("--recipe", default=None,
                     help="a recipe of egs/ (config.py RECIPES), e.g. "
                     "stylesinger")
@@ -178,6 +262,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--allow_random", action="store_true",
                     help="infer only: permit the demo from seeded random "
                     "weights when the work dir has no checkpoint")
+    ap.add_argument("--mfa", action="store_true",
+                    help="preprocess only: also lay out the MFA alignment "
+                    "corpus")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
@@ -187,6 +274,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = load_config(args.recipe, **parse_hparams(args.hparams))
     work_dir = os.path.join(args.work_dir_root, args.exp_name)
     cfg["work_dir"] = work_dir
+    if args.command == "preprocess":
+        preprocess(cfg, mfa=args.mfa)
+        return 0
+    if args.command == "mfa-align":
+        mfa_align(cfg)
+        return 0
+    if args.command == "binarize":
+        from stylesinger_torch.data.binarize import binarize
+
+        binarize(cfg, device=args.device)
+        print(f"| wrote {cfg['binary_data_dir']}")
+        return 0
     if args.command == "train":
         state = train(cfg, work_dir, device=args.device)
         print(f"| trained to step {state.step}; checkpoints in {work_dir}")

@@ -7,8 +7,8 @@ crossfaded chunks of one shape (:meth:`HifiGAN_NSF.spec2wav_streaming`),
 and applies the spectral-subtraction denoiser when ``vocoder_denoise_c``
 > 0.  Its weights come from ``vocoder_ckpt`` (:func:`load_vocoder_state_dict`)
 when that is set.  :func:`get_vocoder_cls` picks the wrapper that
-``vocoder`` names (the JAX package's registry); the PWG, MelGAN and
-Griffin-Lim wrappers are not ported.
+``vocoder`` names (the JAX package's registry), ``HifiGAN_NSF`` or the
+weightless ``GriffinLim``; the PWG and MelGAN wrappers are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from stylesinger_torch.convert import (
     convert_hifigan, from_jax_params, load_torch_checkpoint,
 )
 from stylesinger_torch.dsp.denoise import denoise
+from stylesinger_torch.dsp.griffin_lim import griffin_lim, mel_to_linear
 from stylesinger_torch.inference import init_random_, resolve_device
 from stylesinger_torch.models.diffusion import Noise
 from stylesinger_torch.models.hifigan import HifiGanGenerator
@@ -160,13 +161,42 @@ class HifiGAN_NSF:
         return out / np.maximum(weight, 1e-8)
 
 
-VOCODERS: Dict[str, Type[HifiGAN_NSF]] = {"HifiGAN_NSF": HifiGAN_NSF}
+class GriffinLim:
+    """DSP fallback with no weights: the mel's approximate linear
+    magnitude (``mel_to_linear``) and 30 Griffin-Lim iterations, on
+    ``device``.  The initial phases come from ``torch.Generator(seed)``
+    unless ``spec2wav`` is given ``angles`` (JAX's wrapper draws them from
+    ``PRNGKey(0)``)."""
+
+    def __init__(self, cfg: Any, device: Union[str, torch.device] = "cuda",
+                 seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+
+    @torch.no_grad()
+    def spec2wav(self, mel: np.ndarray, angles=None, **kwargs) -> np.ndarray:
+        c = self.cfg
+        mag = mel_to_linear(
+            torch.as_tensor(np.asarray(mel, np.float32), device=self.device),
+            sample_rate=c["audio_sample_rate"], n_fft=c["fft_size"],
+            n_mels=c["audio_num_mel_bins"], fmin=c["fmin"], fmax=c["fmax"])
+        if angles is not None:
+            angles = torch.as_tensor(np.asarray(angles))
+        return griffin_lim(
+            mag, n_fft=c["fft_size"], hop_size=c["hop_size"],
+            win_length=c["win_size"], angles=angles,
+            generator=torch.Generator().manual_seed(self.seed)
+        ).cpu().numpy()
+
+
+VOCODERS: Dict[str, Type] = {"HifiGAN_NSF": HifiGAN_NSF,
+                             "GriffinLim": GriffinLim}
 # registered in the JAX package, not ported yet: the ROADMAP item of each
-UNPORTED_VOCODERS = {"PWG": "queue 1, item 9", "MelGAN": "queue 1, item 9",
-                     "GriffinLim": "queue 1, item 8"}
+UNPORTED_VOCODERS = {"PWG": "queue 1, item 9", "MelGAN": "queue 1, item 9"}
 
 
-def get_vocoder_cls(cfg: Any) -> Type[HifiGAN_NSF]:
+def get_vocoder_cls(cfg: Any) -> Type:
     """The wrapper class that ``cfg['vocoder']`` names."""
     name = cfg["vocoder"]
     if name in UNPORTED_VOCODERS:

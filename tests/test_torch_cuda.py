@@ -444,3 +444,109 @@ def test_evaluate_pair_on_the_card_matches_cpu(cuda, tmp_path):
     mcd_bound = 2 * k * math.sqrt(80) * (tol["atol"] + tol["rtol"] * worst)
     assert abs(card["mcd"] - cpu["mcd"]) <= mcd_bound
     assert abs(card["ffe"] - cpu["ffe"]) <= 1.0 / (sr // 256)
+
+
+def _one_item_corpus(root, sr=48000, seconds=2.0):
+    """A processed corpus of one harmonic item on four notes, at the
+    recipe's audio settings."""
+    import json
+
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.dsp.mel import save_wav
+
+    rng = np.random.default_rng(5)
+    t = np.arange(int(seconds * sr)) / sr
+    notes = np.array([60, 64, 67, 62])
+    f0 = 440.0 * 2 ** ((notes[np.minimum((t / seconds * 4).astype(int), 3)]
+                        - 69) / 12)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(rng.uniform(0.2, 1) / h * np.sin(h * phase) for h in range(1, 7))
+    wav = 0.3 * wav / np.abs(wav).max() + 0.003 * rng.standard_normal(len(t))
+    processed = root / "processed"
+    processed.mkdir(parents=True)
+    save_wav(wav, str(processed / "a.wav"), sr)
+    ph = ["n", "i3", "h", "ao3"]
+    with open(processed / "metadata.json", "w") as f:
+        json.dump([dict(item_name="a", ph=ph, ph_durs=[seconds / 4] * 4,
+                        wav_fn=str(processed / "a.wav"), singer="s",
+                        ep_pitches=notes.tolist(),
+                        ep_notedurs=[seconds / 4] * 4, ep_types=[2] * 4)], f)
+    with open(processed / "phone_set.json", "w") as f:
+        json.dump(sorted(ph), f)
+    return load_config(recipe="stylesinger", processed_data_dir=str(processed))
+
+
+@pytest.mark.cuda
+def test_binarized_item_on_the_card_matches_cpu(cuda, tmp_path):
+    """One 2 s item through ``StyleSingingBinarizer`` on the card (one mel
+    launch) and on the CPU (the plain twins), with the same seeded GE2E
+    weights: tokens, ``mel2ph`` and lengths exactly, the mel within the
+    mel tolerance, the F0's voicing on >= 99.5 % of frames and the voiced
+    F0 within 1e-3 relative, the d-vectors within 1e-5 although cuDNN's
+    TF32 is on (the binarizer runs its LSTMs in f32; with TF32 they move
+    by about 1e-4); every field numpy."""
+    from stylesinger_torch.data.binarize import StyleSingingBinarizer
+    from stylesinger_torch.data.indexed_dataset import IndexedDataset
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    cfg = _one_item_corpus(tmp_path)
+    out = {}
+    for name, device in (("cuda", cuda), ("cpu", "cpu")):
+        c = dict(cfg, binary_data_dir=str(tmp_path / name))
+        melk.counter.reset()
+        StyleSingingBinarizer(c, device=device).process()
+        assert melk.counter.count == (1 if name == "cuda" else 0)
+        out[name] = IndexedDataset(str(tmp_path / name / "train"))[0]
+    a, b = out["cuda"], out["cpu"]
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert not isinstance(a[k], torch.Tensor), k
+    for k in ("ph_token", "mel2ph", "len", "wav", "sec"):
+        np.testing.assert_array_equal(a[k], b[k])
+    assert torch.allclose(torch.as_tensor(a["mel"]), torch.as_tensor(b["mel"]),
+                          atol=3e-3, rtol=2e-3)
+    assert ((a["f0"] > 0) == (b["f0"] > 0)).mean() >= 0.995
+    both = (a["f0"] > 0) & (b["f0"] > 0)
+    assert both.mean() > 0.5
+    np.testing.assert_allclose(a["f0"][both], b["f0"][both], rtol=1e-3)
+    for k in ("spk_embed", "emo_embed"):
+        np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=0)
+    assert torch.backends.cudnn.allow_tf32  # the switch is restored
+
+
+@pytest.mark.cuda
+def test_tsd_batch_reaches_the_card_through_pinned_memory(cuda, tmp_path):
+    """``PrefetchBatcher(device=cuda)``: every batch's tensors on the card,
+    equal to the numpy batch the C++ reader assembled."""
+    from stylesinger_torch.data.native_loader import TsdWriter
+    from stylesinger_torch.data.tsd_dataset import (
+        PrefetchBatcher, TsdStyleSingerDataset, precompute_item_fields,
+        to_device,
+    )
+
+    cfg = tiny_test_config(max_tokens=200, max_sentences=4)
+    rng = np.random.default_rng(3)
+    w = TsdWriter(str(tmp_path / "train"))
+    for _ in range(9):
+        t, tt = int(rng.integers(10, 60)), int(rng.integers(3, 12))
+        w.add_item(precompute_item_fields(dict(
+            mel=rng.standard_normal((t, 16)).astype(np.float32),
+            mel2ph=np.sort(rng.integers(1, tt + 1, t)),
+            f0=(150 + 50 * rng.uniform(size=t)).astype(np.float32),
+            ph_token=rng.integers(1, 20, tt), ep_pitches=rng.integers(
+                40, 80, tt), ep_notedurs=rng.uniform(0.1, 0.5, tt),
+            ep_types=rng.integers(1, 4, tt),
+            spk_embed=rng.standard_normal(256).astype(np.float32)), cfg))
+    w.finalize()
+    ds = TsdStyleSingerDataset(cfg, str(tmp_path / "train"))
+    host = list(PrefetchBatcher(ds, cfg, shuffle=False).batches(0))
+    card = list(PrefetchBatcher(ds, cfg, shuffle=False,
+                                device=cuda).batches(0))
+    assert len(host) == len(card) > 1
+    for h, c in zip(host, card):
+        assert sorted(h) == sorted(c)
+        for k, v in c.items():
+            assert v.is_cuda, k
+            np.testing.assert_array_equal(v.cpu().numpy(), h[k])
+    pinned = to_device({"x": np.ones(3, np.float32)}, "cpu")["x"]
+    assert not pinned.is_cuda

@@ -54,7 +54,19 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.training.vocoder_task",
                      "stylesinger_torch.training.test_runner",
                      "stylesinger_torch.eval.metrics",
-                     "stylesinger_torch.eval.evaluate_gen"):
+                     "stylesinger_torch.eval.evaluate_gen",
+                     "stylesinger_torch.text",
+                     "stylesinger_torch.text_norm_zh",
+                     "stylesinger_torch.text_processors",
+                     "stylesinger_torch.dsp.loudness",
+                     "stylesinger_torch.dsp.textgrid_align",
+                     "stylesinger_torch.dsp.cwt",
+                     "stylesinger_torch.dsp.dtw",
+                     "stylesinger_torch.dsp.griffin_lim",
+                     "stylesinger_torch.data.preprocess",
+                     "stylesinger_torch.data.native_loader",
+                     "stylesinger_torch.data.tsd_dataset",
+                     "stylesinger_torch.data.binarize"):
         assert expected in names
 
 
@@ -65,6 +77,33 @@ def test_cuda_sources_have_a_plain_c_interface():
         text = src.read_text()
         assert "torch/extension.h" not in text, src
         assert 'extern "C"' in text, src
+
+
+def test_data_path_runs_without_jax_flax_yaml_or_jax_package(tmp_path):
+    """The text front-end, the binarizer's resolution of the recipe's
+    JAX class name and the TSD reader's host build, with the four names
+    blocked."""
+    code = _IMPORT_ALL.split("import stylesinger_torch")[0] + r"""
+from stylesinger_torch.config import load_config
+from stylesinger_torch.data.binarize import resolve_binarizer_cls
+from stylesinger_torch.data.native_loader import TsdReader, TsdWriter
+from stylesinger_torch.text_processors import get_txt_processor_cls
+import numpy as np, sys
+print(get_txt_processor_cls("zh").process("我爱你")[1])
+print(resolve_binarizer_cls(load_config(recipe="stylesinger")
+                            ["binarizer_cls"]).__name__)
+w = TsdWriter(sys.argv[1]); w.add_item({"mel": np.ones((3, 2), np.float32)})
+w.finalize()
+print(TsdReader(sys.argv[1]).gather_pad([0], "mel", 4).sum())
+assert not [m for m in ("jax", "flax", "optax", "yaml", "stylesinger_tpu")
+            if sys.modules.get(m) is not None]
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "x")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.splitlines() == ["wo3 ai4 ni3", "StyleSingingBinarizer",
+                                       "6.0"]
 
 
 def test_build_directory_is_git_ignored():
