@@ -56,6 +56,30 @@ Phases, each printed on its own line with its elapsed seconds:
      clock between ``torch.cuda.synchronize()`` calls), steps/s after the
      first step, the peak memory and one eval step's time, and it launches
      neither kernel;
+   - ``train bf16``: the same run at ``compute_dtype=bfloat16`` (bf16
+     activations at the JAX package's cast sites, f32 parameters), its
+     warm step times per phase and its peak memory above what was
+     allocated when it started, beside the f32 run's; then one bf16 step
+     of the tiny model on the card against the CPU's bf16 step: every loss
+     finite and within 1e-4 (relative, atol 1e-4), the gradients at cosine
+     similarity above 0.9999 and within 1e-2 in relative L2; every compute
+     layer of the card's step (the attention's ``qkv``, the FFN's
+     ``Conv_0`` and WaveNet's ``in_0`` among them) returned bf16, and its
+     gradient is more than 0.4 % (relative L2) from the CPU's f32 step's;
+     no kernel;
+   - ``settings``: one tiny train step each with ``decoder: prodiff`` (on
+     the WaveNet and on the FFT denoiser), ``use_spk_id``, ``rel_pos`` and
+     ``pitch_type: ph``, on the card against the CPU at the ``small train
+     step`` tolerances; no kernel;
+   - ``data parallel``: one tiny step through ``init_distributed`` at world
+     size 1 on NCCL against the plain step on the card; then two ranks on
+     the one card as two processes over gloo (NCCL refuses two ranks on one
+     device; the port's collectives are all ``all_reduce``, which gloo
+     runs on CUDA tensors), with batches in different buckets (2 x 32
+     frames, 4 x 64), against one process's step on the two batches padded
+     and concatenated: losses within 1e-4, gradients within 1e-3 *
+     max|g_leaf| + 1e-6 * max|g|, RQ buffers within 1e-5, both ranks'
+     states equal; each rank has a 300 s timeout;
 5. training the vocoder GAN on the card:
    - ``small vocoder gan step``: one discriminator + generator iteration of
      the tiny GAN on the card against the CPU (same weights, batch and
@@ -122,7 +146,10 @@ Phases, each printed on its own line with its elapsed seconds:
    processes, their shards against the in-process ones; 4 steps of
    ``run.py train`` (``run.main``, in process, so that the launch counts
    can be read: none) on those shards, with a checkpoint and finite
-   losses;
+   losses; then ``recipe file``: ``run.py train --config
+   egs/stylesinger.yaml`` (the port's own YAML reader) in its own process
+   for 2 steps of a small curriculum on those shards, its ``config.yaml``
+   read back equal to the config it trained with;
 8. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
@@ -163,6 +190,9 @@ MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
 TEST_IDS = (0, 2, 3)      # test split: the items run.py test synthesizes
 MRF_BF16_ULPS = 2        # bf16 ulps of max|y|: an f32 sum in another order
                          # can land across a bf16 rounding
+MIN_BF16_SPREAD = 4e-3   # a bf16 step's gradient off the f32 step's
+                         # (relative L2; 1.2 % on the CPU at the tiny size)
+BF16_SITES = (".qkv", ".Conv_0", ".in_0")  # compute layers that must run
 
 # the phrase and notes of the JAX package's example_run
 EXAMPLE = dict(
@@ -882,31 +912,64 @@ def collated(cfg, items):
                          cfg["frame_buckets"], cfg["token_buckets"])
 
 
-def phase_train_small(t0, torch, np):
-    """One train step of the tiny model, the card against the CPU."""
-    from stylesinger_torch.config import tiny_test_config
+def cpu_small_step(np, cfg, spk_ids=None):
+    """One train step of a tiny model on the CPU: seeded weights, a seeded
+    batch (``spk_ids`` go into it, for ``use_spk_id``) and draws recorded
+    from seeded CPU generators.  Returns (state, metrics, batch, phase,
+    the weights before the step, the recorded draws)."""
     from stylesinger_torch.models.stylesinger import StyleSinger
     from stylesinger_torch.training import step as ts
 
-    cfg = tiny_test_config()
     vocab = 20
     batch = collated(cfg, synthetic_items(np, 4, (16, 30), (3, 7), 16, vocab,
                                           SEED))
+    if spk_ids is not None:
+        batch["spk_id"] = np.asarray(spk_ids, np.int64)
     phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
     cpu = ts.init_state(StyleSinger(cfg, vocab), cfg)
-    model = StyleSinger(cfg, vocab)
-    model.load_state_dict(cpu.model.state_dict())
-    gpu = ts.TrainState(model.cuda(), ts.Optimizer(
-        dict(model.named_parameters()), cfg))
+    first = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     recs = {s: _Recorder(SEED + i) for i, s in enumerate(ts.STREAMS)}
     m_cpu = ts.train_step(cpu, ts.batch_to_device(batch, "cpu"), phase, cfg,
                           noise=recs)
-    m_gpu = ts.train_step(gpu, ts.batch_to_device(batch, "cuda"), phase,
-                          cfg, noise={s: _Replay(r.draws, "cuda")
-                                      for s, r in recs.items()})
+    return cpu, m_cpu, batch, phase, first, recs
+
+
+def small_step_pair(torch, np, cfg, spk_ids=None, card_dtypes=None):
+    """One train step of a tiny model on the CPU and on the card from the
+    same weights and batch, the draws made on CPU generators and replayed
+    on the card (:func:`cpu_small_step`).  ``card_dtypes`` (a dict)
+    receives the output dtypes of the card model's compute layers.
+    Returns (cpu state, card state, cpu metrics, card metrics, relative
+    loss errors)."""
+    import contextlib
+
+    from stylesinger_torch.models import precision
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cpu, m_cpu, batch, phase, first, recs = cpu_small_step(np, cfg, spk_ids)
+    model = StyleSinger(cfg, 20)
+    model.load_state_dict(first)
+    gpu = ts.TrainState(model.cuda(), ts.Optimizer(
+        dict(model.named_parameters()), cfg))
+    record = contextlib.nullcontext({}) if card_dtypes is None else \
+        precision.compute_layer_dtypes(gpu.model)
+    with record as seen:
+        m_gpu = ts.train_step(gpu, ts.batch_to_device(batch, "cuda"), phase,
+                              cfg, noise={s: _Replay(r.draws, "cuda")
+                                          for s, r in recs.items()})
     torch.cuda.synchronize()
+    if card_dtypes is not None:
+        card_dtypes.update(seen)
     errs = {k: abs(float(m_gpu[k]) - float(v)) / max(1.0, abs(float(v)))
             for k, v in m_cpu.items()}
+    return cpu, gpu, m_cpu, m_gpu, errs
+
+
+def grad_err_over_tol(cpu, gpu):
+    """The worst gradient leaf's error over its tolerance, 1e-3 *
+    max|g_leaf| + 1e-6 * max|g| (leaves zero in exact arithmetic carry f32
+    rounding), and its name; a gradient on the card alone fails."""
     g_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
     g_max = max(float(g.abs().max()) for g in g_cpu.values()
                 if g is not None)
@@ -922,6 +985,16 @@ def phase_train_small(t0, torch, np):
         tol = 1e-3 * float(ref.abs().max()) + 1e-6 * g_max
         if err / tol > worst:
             worst, worst_name = err / tol, name
+    return worst, worst_name
+
+
+def phase_train_small(t0, torch, np):
+    """One train step of the tiny model, the card against the CPU."""
+    from stylesinger_torch.config import tiny_test_config
+
+    cpu, gpu, m_cpu, m_gpu, errs = small_step_pair(torch, np,
+                                                   tiny_test_config())
+    worst, worst_name = grad_err_over_tol(cpu, gpu)
     buf_err = max(float((b.cpu() - cpu.model.state_dict()[k]).abs().max())
                   for k, b in gpu.model.state_dict().items()
                   if ".codebook_" in k)
@@ -944,87 +1017,39 @@ def phase_train_recipe(t0, torch, np, root: Path):
     steps/s.  The work dir ``<root>/train/recipe`` stays for the serving
     phases; returns the run: its config, final state, work dir and vocab
     size."""
-    from stylesinger_torch.config import load_config
     from stylesinger_torch.models.stylesinger import StyleSinger
     from stylesinger_torch.training import step as ts
     from stylesinger_torch.training import trainer as tr
 
-    cfg = load_config(recipe="stylesinger", forcing=TRAIN_PHASE_STEPS,
-                      rq_start=TRAIN_PHASE_STEPS - 1,
-                      diff_start=TRAIN_PHASE_STEPS - 1, tb_log_interval=1,
-                      val_check_interval=2 * TRAIN_PHASE_STEPS,
-                      num_ckpt_keep=1)
+    cfg, batch, vocab = recipe_training(np)
     n_steps = 2 * TRAIN_PHASE_STEPS
-    vocab = 64
-    batch = collated(cfg, synthetic_items(
-        np, 8, (600, 1001), (60, 121), cfg["audio_num_mel_bins"], vocab,
-        SEED))
-    require(batch["mels"].shape == (8, 1024, 80) and
-            batch["txt_tokens"].shape == (8, 128),
-            f"train recipe: buckets {batch['mels'].shape}")
-    require(8 * batch["mels"].shape[1] <= cfg["max_tokens"],
-            "train recipe: the batch exceeds max_tokens")
-    steps, first = [], {}
-    train_step = tr.train_step
-
-    def timed_step(state, b, phase, c):
-        if not first:
-            first.update({k: v.detach().clone() for k, v in
-                          state.model.state_dict().items()})
-        torch.cuda.synchronize()
-        tb = time.perf_counter()
-        m = train_step(state, b, phase, c)
-        torch.cuda.synchronize()
-        steps.append((phase, time.perf_counter() - tb, m))
-        return m
-
-    for ctr in counters().values():
-        ctr.reset()
-    torch.cuda.reset_peak_memory_stats()
-    tr.train_step = timed_step
     work = root / "train" / "recipe"
-    try:
-        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
-        state = trainer.fit([batch], lambda: [batch], max_updates=n_steps)
-        tr.train_step = train_step
-        peak = torch.cuda.max_memory_allocated()
-        launches = {k: c.count for k, c in counters().items()}
-        b_dev = ts.batch_to_device(batch, "cuda")
-        last = ts.phase_for_step(n_steps - 1, cfg)
-        torch.cuda.synchronize()
-        te = time.perf_counter()
-        ev = ts.eval_step(state, b_dev, last, cfg)
-        torch.cuda.synchronize()
-        eval_s = time.perf_counter() - te
-        again = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
-        restored = again.init_state()
-        saved = state.model.state_dict()
-        same = all(torch.equal(v, saved[k]) for k, v in
-                   restored.model.state_dict().items())
-        opt_a, opt_b = state.opt.state_dict(), restored.opt.state_dict()
-        same_opt = opt_a["count"] == opt_b["count"] and all(
-            torch.equal(opt_a[key][n], opt_b[key][n])
-            for key in ("mu", "nu") for n in opt_a[key])
-        ckpt_steps = trainer.ckpt.all_steps()
-    finally:
-        tr.train_step = train_step
+    trainer, state, steps, first, peak, launches = timed_fit(
+        torch, cfg, batch, vocab, work)
+    b_dev = ts.batch_to_device(batch, "cuda")
+    last = ts.phase_for_step(n_steps - 1, cfg)
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    ev = ts.eval_step(state, b_dev, last, cfg)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - te
+    again = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
+    restored = again.init_state()
+    saved = state.model.state_dict()
+    same = all(torch.equal(v, saved[k]) for k, v in
+               restored.model.state_dict().items())
+    opt_a, opt_b = state.opt.state_dict(), restored.opt.state_dict()
+    same_opt = opt_a["count"] == opt_b["count"] and all(
+        torch.equal(opt_a[key][n], opt_b[key][n])
+        for key in ("mu", "nu") for n in opt_a[key])
+    ckpt_steps = trainer.ckpt.all_steps()
     n_params = sum(p.numel() for p in state.model.parameters())
     for i, (phase, sec, m) in enumerate(steps):
         say(f"train recipe step {i}", t0, flags="/".join(
             k for k, v in phase._asdict().items() if v) or "none",
             ms=f"{1e3 * sec:.1f}", total_loss=f"{float(m['total_loss']):.4f}",
             grad_norm=f"{float(m['grad_norm']):.4f}", losses=len(m) - 2)
-    by_phase = {}
-    for phase, sec, _ in steps:
-        by_phase.setdefault(phase, []).append(1e3 * sec)
-    per_phase = {}
-    for ph, ms in by_phase.items():
-        name = "_".join(k for k, v in ph._asdict().items() if v)
-        warm = sorted(ms[1:])
-        per_phase[f"{name}_first_ms"] = f"{ms[0]:.1f}"
-        per_phase[f"{name}_warm_median_ms"] = f"{np.median(warm):.1f}"
-        per_phase[f"{name}_warm_min_max_ms"] = f"{warm[0]:.1f}/{warm[-1]:.1f}"
-    last_warm = by_phase[steps[-1][0]][1:]
+    per_phase, last_warm = phase_times(np, steps)
     moved = {k: float((v.float() - first[k].float()).abs().max())
              for k, v in saved.items() if k in first}
     ema_moved = max(v for k, v in moved.items()
@@ -1035,7 +1060,8 @@ def phase_train_recipe(t0, torch, np, root: Path):
         **per_phase,
         steps_per_s_last_phase_warm=(
             f"{1e3 * len(last_warm) / sum(last_warm):.3f}"),
-        peak_mem_gib=f"{peak / 2 ** 30:.2f}",
+        peak_mem_gib=f"{peak[0] / 2 ** 30:.2f}",
+        peak_over_start_gib=f"{peak[1] / 2 ** 30:.3f}",
         eval_ms=f"{1e3 * eval_s:.1f}",
         eval_total_loss=f"{float(ev['total_loss']):.4f}",
         param_moved=f"{param_moved:.3e}", ema_moved=f"{ema_moved:.3e}",
@@ -1062,7 +1088,440 @@ def phase_train_recipe(t0, torch, np, root: Path):
     require(all(v == 0 for v in launches.values()),
             f"train recipe: a kernel launched on the training path "
             f"{launches}")
-    return dict(cfg=cfg, state=state, work=work, vocab=vocab)
+    return dict(cfg=cfg, state=state, work=work, vocab=vocab,
+                per_phase=per_phase, peak=peak)
+
+
+def phase_train_bf16(t0, torch, np, root: Path, f32_run):
+    """``compute_dtype: bfloat16``: the ``train recipe`` run (same model,
+    batch and scaled curriculum) with bf16 activations, its warm step
+    times and peak memory beside the f32 run's; then one bf16 step of the
+    tiny model on the card against the CPU's bf16 step."""
+    from stylesinger_torch.config import tiny_test_config
+
+    cfg, batch, vocab = recipe_training(np, compute_dtype="bfloat16")
+    _, state, steps, first, peak, launches = timed_fit(
+        torch, cfg, batch, vocab, root / "train" / "bf16")
+    per_phase, last_warm = phase_times(np, steps)
+    params = dict(state.model.named_parameters())
+    moved = max(float((p.detach() - first[k]).abs().max())
+                for k, p in params.items())
+    say("train bf16", t0, steps=len(steps), **per_phase,
+        **{f"f32_{k}": v for k, v in f32_run["per_phase"].items()},
+        steps_per_s_last_phase_warm=(
+            f"{1e3 * len(last_warm) / sum(last_warm):.3f}"),
+        peak_mem_gib=f"{peak[0] / 2 ** 30:.2f}",
+        peak_over_start_gib=f"{peak[1] / 2 ** 30:.3f}",
+        f32_peak_over_start_gib=f"{f32_run['peak'][1] / 2 ** 30:.3f}",
+        last_total_loss=f"{float(steps[-1][2]['total_loss']):.4f}",
+        param_moved=f"{moved:.3e}", launches=launches,
+        timer="host clock, cuda.synchronize")
+    require(len(steps) == 2 * TRAIN_PHASE_STEPS,
+            "train bf16: not all steps ran")
+    require(all(np.isfinite(float(v)) for _, _, m in steps
+                for v in m.values()), "train bf16: a non-finite loss")
+    require(all(p.dtype == torch.float32 for p in params.values()),
+            "train bf16: a parameter is not f32")
+    require(moved > 0, "train bf16: the parameters did not move")
+    require(not any(launches.values()),
+            f"train bf16: a kernel launched {launches}")
+    del state
+
+    # the card's bf16 step against the CPU's: both round each op to bf16 at
+    # the same sites, accumulating in other orders; the card ran in bf16:
+    # its compute layers returned bf16 and its gradient is off the CPU's
+    # f32 step's by more than a third of the 1.2 % that bf16 gives there
+    seen = {}
+    cpu, gpu, m_cpu, m_gpu, errs = small_step_pair(
+        torch, np, tiny_test_config(compute_dtype="bfloat16"),
+        card_dtypes=seen)
+    cpu32 = cpu_small_step(np, tiny_test_config(compute_dtype="float32"))[0]
+    names = [k for k, p in cpu.model.named_parameters()
+             if p.grad is not None]
+
+    def flat(state):
+        params = dict(state.model.named_parameters())
+        return torch.cat([params[k].grad.reshape(-1).cpu() for k in names])
+
+    g_cpu, g_gpu, g32 = flat(cpu), flat(gpu), flat(cpu32)
+    cos = float(torch.nn.functional.cosine_similarity(g_cpu, g_gpu, dim=0))
+    rel = float((g_cpu - g_gpu).norm() / g_cpu.norm())
+    spread = float((g_gpu - g32).norm() / g32.norm())
+    sites = [s for s in BF16_SITES if any(n.endswith(s) for n in seen)]
+    not_bf16 = sorted(n for n, d in seen.items() if d != {torch.bfloat16})
+    say("train bf16 small step", t0, worst_loss_err=f"{max(errs.values()):.2e}",
+        tol="1e-4", grad_cosine=f"{cos:.7f}", grad_rel_l2=f"{rel:.3e}",
+        grad_tol="cos>0.9999,rel<1e-2", bf16_layers=len(seen),
+        not_bf16=len(not_bf16), f32_spread=f"{spread:.3e}",
+        spread_min=f"{MIN_BF16_SPREAD:g}")
+    require(all(np.isfinite(float(v)) for v in m_gpu.values()),
+            "train bf16 small step: a non-finite loss")
+    require(all(e <= 1e-4 for e in errs.values()) and cos > 0.9999 and
+            rel < 1e-2, f"train bf16 small step: card and CPU differ "
+            f"({errs}, cosine {cos}, rel {rel})")
+    require(sites == list(BF16_SITES) and not not_bf16,
+            f"train bf16 small step: compute layers not in bf16 on the card "
+            f"(sites seen {sites}, not bf16 {not_bf16[:5]})")
+    require(spread > MIN_BF16_SPREAD,
+            f"train bf16 small step: the card's gradient is {spread:.2e} "
+            "from the f32 step's: not a bf16 step")
+
+
+def phase_settings(t0, torch, np):
+    """The settings ported in this slice, one small train step each on the
+    card against the CPU (the ``small train step`` tolerances)."""
+    from stylesinger_torch.config import tiny_test_config
+
+    cases = (("prodiff", dict(decoder="prodiff"), None),
+             ("prodiff_fft", dict(decoder="prodiff",
+                                  diff_decoder_type="fft"), None),
+             ("use_spk_id", dict(use_spk_id=True), [3, 7, 1, 150]),
+             ("rel_pos", dict(rel_pos=True), None),
+             ("pitch_type_ph", dict(pitch_type="ph"), None))
+    for label, overrides, spk in cases:
+        for ctr in counters().values():
+            ctr.reset()
+        cpu, gpu, m_cpu, m_gpu, errs = small_step_pair(
+            torch, np, tiny_test_config(**overrides), spk)
+        worst, worst_name = grad_err_over_tol(cpu, gpu)
+        launches = {k: c.count for k, c in counters().items()}
+        say(f"settings {label}", t0, losses=",".join(sorted(
+            k for k in m_gpu if k not in ("total_loss", "grad_norm"))),
+            total_loss=f"{float(m_gpu['total_loss']):.4f}",
+            worst_loss_err=f"{max(errs.values()):.2e}", tol="1e-3",
+            worst_grad_err_over_tol=f"{worst:.3f}", at=worst_name,
+            launches=launches)
+        require(all(np.isfinite(float(v)) for v in m_gpu.values()),
+                f"settings {label}: a non-finite loss")
+        require(all(e <= 1e-3 for e in errs.values()) and worst <= 1.0,
+                f"settings {label}: card and CPU differ ({errs}, "
+                f"{worst_name} {worst:.2f} x its tolerance)")
+        require(not any(launches.values()),
+                f"settings {label}: a kernel launched {launches}")
+
+
+_DP_RANK = r"""
+import os, sys
+import numpy as np
+import torch
+
+from stylesinger_torch.config import tiny_test_config
+from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.models.stylesinger import StyleSinger
+from stylesinger_torch.parallel import mesh
+from stylesinger_torch.training import step as ts
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+d, seed = sys.argv[1], int(sys.argv[2])
+assert mesh.init_distributed("cuda", backend="gloo")
+rank = mesh.rank()
+cfg = tiny_test_config()
+model = StyleSinger(cfg, 20)
+model.load_state_dict(torch.load(os.path.join(d, "weights.pt")))
+state = ts.TrainState(model.cuda(), ts.Optimizer(
+    dict(model.named_parameters()), cfg))
+batch = dict(np.load(os.path.join(d, f"batch{rank}.npz")))
+m = ts.train_step(state, ts.batch_to_device(batch, "cuda"),
+                  ts.Phase(True, False, True), cfg,
+                  noise={s: Noise(seed + i, "cuda")
+                         for i, s in enumerate(ts.STREAMS)})
+out = {f"metric/{k}": v.cpu().numpy() for k, v in m.items()}
+out.update({f"state/{k}": v.cpu().numpy()
+            for k, v in model.state_dict().items()})
+out.update({f"grad/{k}": p.grad.cpu().numpy()
+            for k, p in model.named_parameters()})
+np.savez(os.path.join(d, f"out{rank}.npz"), **out)
+print(f"RANK_OK {rank}", flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_compare(torch, np, ref_state, ref_m, rank_out, label):
+    """A rank's step against the one-process step on the global batch:
+    losses within 1e-4 (relative, atol 1e-4), gradients within 1e-3 *
+    max|g_leaf| + 1e-6 * max|g|, RQ buffers within 1e-5.  Returns the
+    worst loss error and gradient error over its tolerance."""
+    loss_err = max(abs(float(rank_out[f"metric/{k}"]) - float(v)) /
+                   max(1.0, abs(float(v))) for k, v in ref_m.items())
+    grads = {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
+             for k, p in ref_state.model.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in grads.values())
+    worst = max(float((torch.as_tensor(rank_out[f"grad/{k}"]) - g).abs()
+                      .max()) / (1e-3 * float(g.abs().max()) + 1e-6 * g_max)
+                for k, g in grads.items())
+    sd = ref_state.model.state_dict()
+    buf = max(float((torch.as_tensor(rank_out[f"state/{k}"]) - v.cpu())
+                    .abs().max()) for k, v in sd.items()
+              if ".codebook_" in k)
+    require(loss_err <= 1e-4 and worst <= 1.0 and buf <= 1e-5,
+            f"{label}: differs from the one-process step (losses "
+            f"{loss_err:.2e}, gradients {worst:.2f} x tol, RQ {buf:.2e})")
+    return loss_err, worst, buf
+
+
+def phase_data_parallel(t0, torch, np, root: Path):
+    """Data parallel training: one step through ``init_distributed`` at
+    world size 1 on NCCL against the plain step; then two ranks on this
+    one card, two processes over gloo (NCCL refuses two ranks on one
+    device) holding batches in different buckets, against one process's
+    step on the concatenated global batch.  Draws from seeded generators
+    on the card (each rank draws the global tensors and keeps its rows)."""
+    import torch.distributed as dist
+
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.parallel import mesh
+    from stylesinger_torch.training import step as ts
+
+    cfg = tiny_test_config()
+    phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
+    init = ts.init_state(StyleSinger(cfg, 20), cfg).model.state_dict()
+
+    def step(batch, seed=SEED):
+        model = StyleSinger(cfg, 20)
+        model.load_state_dict(init)
+        state = ts.TrainState(model.cuda(), ts.Optimizer(
+            dict(model.named_parameters()), cfg))
+        m = ts.train_step(state, ts.batch_to_device(batch, "cuda"), phase,
+                          cfg, noise={s: Noise(seed + i, "cuda")
+                                      for i, s in enumerate(ts.STREAMS)})
+        torch.cuda.synchronize()
+        return state, m
+
+    for ctr in counters().values():
+        ctr.reset()
+    batch = collated(cfg, synthetic_items(np, 4, (16, 30), (3, 7), 16, 20,
+                                          SEED))
+    plain_state, plain_m = step(batch)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        require(mesh.init_distributed("cuda") and
+                dist.get_backend() == "nccl",
+                "data parallel: no NCCL group at world size 1")
+        dp_state, dp_m = step(batch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {f"metric/{k}": v.cpu().numpy() for k, v in dp_m.items()}
+    out.update({f"state/{k}": v.cpu().numpy()
+                for k, v in dp_state.model.state_dict().items()})
+    out.update({f"grad/{k}": p.grad.cpu().numpy()
+                for k, p in dp_state.model.named_parameters()})
+    one = _dp_compare(torch, np, plain_state, plain_m, out,
+                      "data parallel world 1")
+    say("data parallel world 1", t0, backend="nccl",
+        loss_err=f"{one[0]:.2e}", grad_err_over_tol=f"{one[1]:.3f}",
+        rq_err=f"{one[2]:.2e}", tol="1e-4/1e-3*max|g|/1e-5")
+
+    # two ranks, different buckets and rows: 2 items (32 frames / 8
+    # phones) and 3 items in a 4-row batch (64 / 16)
+    locals_ = [collated(cfg, synthetic_items(np, 2, (16, 30), (3, 7), 16,
+                                             20, SEED + 1)),
+               collated(cfg, synthetic_items(np, 3, (40, 60), (10, 15), 16,
+                                             20, SEED + 2))]
+    t_mel = max(b["mels"].shape[1] for b in locals_)
+    t_txt = max(b["txt_tokens"].shape[1] for b in locals_)
+
+    def pad(b):
+        out = {}
+        for k, v in b.items():
+            if k == "nsamples":
+                continue
+            n = t_mel if k in mesh.FRAME_FIELDS else \
+                t_txt if k in mesh.TOKEN_FIELDS else None
+            if n is not None:
+                v = np.pad(v, [(0, 0), (0, n - v.shape[1])] +
+                           [(0, 0)] * (v.ndim - 2))
+            out[k] = v
+        return out
+
+    padded = [pad(b) for b in locals_]
+    global_batch = {k: np.concatenate([p[k] for p in padded])
+                    for k in padded[0]}
+    ref_state, ref_m = step(global_batch, SEED + 10)
+    d = root / "data_parallel"
+    d.mkdir()
+    torch.save(init, d / "weights.pt")
+    for r, b in enumerate(locals_):
+        np.savez(d / f"batch{r}.npz", **{k: v for k, v in b.items()
+                                          if k != "nsamples"})
+    env = dict(os.environ, PYTHONPATH=str(REPO), WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               LOCAL_RANK="0")
+    tp = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DP_RANK, str(d), str(SEED + 10)],
+        cwd=str(REPO), env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0 and r < len(outs) and
+                f"RANK_OK {r}" in outs[r],
+                f"data parallel: rank {r} failed: "
+                f"{(outs[r] if r < len(outs) else '')[-2000:]}")
+    ranks = [dict(np.load(d / f"out{r}.npz")) for r in range(2)]
+    equal = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0])
+    worst = [_dp_compare(torch, np, ref_state, ref_m, ranks[r],
+                         f"data parallel rank {r}") for r in range(2)]
+    launches = {k: c.count for k, c in counters().items()}
+    say("data parallel 2 ranks", t0, backend="gloo (CUDA tensors)",
+        buckets=[tuple(b["mels"].shape) for b in locals_],
+        global_batch=tuple(global_batch["mels"].shape),
+        loss_err=f"{max(w[0] for w in worst):.2e}",
+        grad_err_over_tol=f"{max(w[1] for w in worst):.3f}",
+        rq_err=f"{max(w[2] for w in worst):.2e}",
+        ranks_equal=equal, seconds=f"{time.perf_counter() - tp:.2f}",
+        launches=launches)
+    require(equal, "data parallel: the two ranks' states differ")
+    require(not any(launches.values()),
+            f"data parallel: a kernel launched {launches}")
+
+
+def phase_recipe_file(t0, torch, np, root: Path, binary: Path):
+    """``run.py train --config egs/stylesinger.yaml`` (the port's YAML
+    reader; no PyYAML here) for 2 steps of a small curriculum on the
+    ``data prep`` shards, in its own process; the ``config.yaml`` it
+    writes read back equal to the config it trained with."""
+    from stylesinger_torch.config import load_config, load_work_dir_config
+
+    hp = (f"binary_data_dir={binary},max_updates=2,forcing=1,rq_start=0,"
+          "diff_start=0,tb_log_interval=1,val_check_interval=2,"
+          "num_ckpt_keep=1")
+    work = root / "recipe_file"
+    tc = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "stylesinger_torch.run", "train", "--config",
+         "egs/stylesinger.yaml", "--hparams", hp, "--exp_name", "yaml",
+         "--work_dir_root", str(work), "--device", "cuda"], cwd=str(REPO),
+        capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - tc
+    require(out.returncode == 0, f"recipe file: run.py train failed: "
+            f"{out.stderr[-2000:]}")
+    run_dir = work / "yaml"
+    with open(run_dir / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [m for m in rows if m["prefix"] == "train"]
+    saved = load_work_dir_config(str(run_dir))
+    expected = load_config(str(REPO / "egs" / "stylesinger.yaml"), hp,
+                           work_dir=str(run_dir))
+    equal = json.loads(json.dumps(saved)) == json.loads(json.dumps(expected))
+    say("recipe file", t0, steps=len(train_rows),
+        step_ms=",".join(f"{1e3 / m['steps_per_sec']:.1f}"
+                         for m in train_rows),
+        total_loss=",".join(f"{m['total_loss']:.4f}" for m in train_rows),
+        config_keys=len(saved), read_back_equal=equal,
+        hidden=saved["hidden_size"], mesh_shape=saved["mesh_shape"],
+        seconds=f"{seconds:.2f}")
+    require(len(train_rows) == 2 and all(
+        math.isfinite(v) for m in rows for k, v in m.items()
+        if k not in ("step", "prefix")), "recipe file: not 2 finite steps")
+    require(equal, "recipe file: config.yaml does not read back equal")
+
+
+def recipe_training(np, **overrides):
+    """The ``train recipe`` run's config (the recipe, the curriculum
+    scaled to ``TRAIN_PHASE_STEPS``, and ``overrides``), its 8 x 1024-frame
+    batch and vocabulary size."""
+    from stylesinger_torch.config import load_config
+
+    cfg = load_config(recipe="stylesinger", forcing=TRAIN_PHASE_STEPS,
+                      rq_start=TRAIN_PHASE_STEPS - 1,
+                      diff_start=TRAIN_PHASE_STEPS - 1, tb_log_interval=1,
+                      val_check_interval=2 * TRAIN_PHASE_STEPS,
+                      num_ckpt_keep=1, **overrides)
+    vocab = 64
+    batch = collated(cfg, synthetic_items(
+        np, 8, (600, 1001), (60, 121), cfg["audio_num_mel_bins"], vocab,
+        SEED))
+    require(batch["mels"].shape == (8, 1024, 80) and
+            batch["txt_tokens"].shape == (8, 128),
+            f"train recipe: buckets {batch['mels'].shape}")
+    require(8 * batch["mels"].shape[1] <= cfg["max_tokens"],
+            "train recipe: the batch exceeds max_tokens")
+    return cfg, batch, vocab
+
+
+def timed_fit(torch, cfg, batch, vocab, work):
+    """``Trainer.fit`` of the recipe's model on ``[batch]`` (validation on
+    it too) for the two curriculum phases, each step timed on the host
+    clock between synchronizes, the launch counts set to 0 before and read
+    after.  Returns (trainer, state, steps as (phase, s, metrics), the
+    weights before the first step, peak bytes, launches)."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import trainer as tr
+
+    steps, first = [], {}
+    train_step = tr.train_step
+
+    def timed_step(state, b, phase, c):
+        if not first:
+            first.update({k: v.detach().clone() for k, v in
+                          state.model.state_dict().items()})
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        m = train_step(state, b, phase, c)
+        torch.cuda.synchronize()
+        steps.append((phase, time.perf_counter() - tb, m))
+        return m
+
+    for ctr in counters().values():
+        ctr.reset()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    tr.train_step = timed_step
+    try:
+        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, str(work))
+        state = trainer.fit([batch], lambda: [batch],
+                            max_updates=2 * TRAIN_PHASE_STEPS)
+    finally:
+        tr.train_step = train_step
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.count for k, c in counters().items()}
+    return trainer, state, steps, first, (peak, peak - start), launches
+
+
+def phase_times(np, steps):
+    """Per curriculum phase: the first step's ms, the warm steps' median
+    and min/max; and the last phase's warm step times."""
+    by_phase = {}
+    for phase, sec, _ in steps:
+        by_phase.setdefault(phase, []).append(1e3 * sec)
+    per_phase = {}
+    for ph, ms in by_phase.items():
+        name = "_".join(k for k, v in ph._asdict().items() if v)
+        warm = sorted(ms[1:])
+        per_phase[f"{name}_first_ms"] = f"{ms[0]:.1f}"
+        per_phase[f"{name}_warm_median_ms"] = f"{np.median(warm):.1f}"
+        per_phase[f"{name}_warm_min_max_ms"] = f"{warm[0]:.1f}/{warm[-1]:.1f}"
+    return per_phase, by_phase[steps[-1][0]][1:]
 
 
 def _gan_check(torch, np, cpu, gpu, grads, lr):
@@ -1879,7 +2338,8 @@ def phase_data_prep(t0, torch, np, root: Path):
     """Raw corpus -> ``metadata.json`` -> shards -> ``run.py train`` at the
     recipe's audio settings (48 kHz, fft 1024, hop 256, 80 mels, both GE2E
     encoders, ``with_wav`` / ``with_spk_embed`` / ``with_emotion`` /
-    ``write_tsd`` on), with every check of the phase."""
+    ``write_tsd`` on), with every check of the phase.  Returns the CLI's
+    shard directory."""
     from stylesinger_torch import run
     from stylesinger_torch.config import load_config
     from stylesinger_torch.data import native_loader
@@ -2169,6 +2629,7 @@ def phase_data_prep(t0, torch, np, root: Path):
             f"(rc {rc}, {len(train_rows)} steps, {ckpts})")
     require(not any(train_launches.values()),
             f"data prep: training launched a kernel {train_launches}")
+    return cli_binary
 
 
 def mrf_against_plain_bf16(torch, np, cfg, item):
@@ -2266,13 +2727,17 @@ def main() -> int:
                                          dir=str(REPO)) as tmp:
             root = Path(tmp)
             train = phase_train_recipe(t0, torch, np, root)
+            phase_train_bf16(t0, torch, np, root, train)
+            phase_settings(t0, torch, np)
+            phase_data_parallel(t0, torch, np, root)
             phase_vocoder_gan_small(t0, torch, np)
             generator = phase_vocoder_gan(t0, torch, np, root)
             inputs = serve_inputs(torch, np, root, train, generator, wav_np)
             phase_checkpoint_infer(t0, torch, np, train, inputs, wav_np)
             phase_test_split(t0, torch, np, train, inputs)
             del train
-            phase_data_prep(t0, torch, np, root)
+            binary = phase_data_prep(t0, torch, np, root)
+            phase_recipe_file(t0, torch, np, root, binary)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

@@ -4,12 +4,17 @@ A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
 ported modules read (model, training, data), ``apply_spec_stats`` and
 ``tiny_test_config``, and ``READ_WITH_GET`` / ``READ_WITH_GET_DATA``, the
 keys that the JAX package's vocoder task, dataset and data CLI read with
-``cfg.get``.  No YAML reader
-is needed (the GPU machine has no PyYAML): ``RECIPES`` holds, for each
-recipe of ``egs/``, the keys the port reads where the recipe and its bases
-differ from the defaults, and ``load_config(recipe=..., **overrides)``
-returns a deep copy of ``DEFAULTS`` with the recipe and then the keyword
-overrides applied.
+``cfg.get``.
+
+Recipe files: ``load_config(path, overrides, recipe=None, **kwargs)`` is
+the defaults <- the YAML file ``path`` with its ``base_config`` cascade
+(``_load_yaml_cascade``, children over parents) <- the ``--hparams``
+string ``overrides`` (``apply_overrides``; dotted keys reach nested maps)
+<- the keyword overrides.  ``recipe=NAME`` names the file
+``egs/NAME.yaml`` of the repo.  The YAML is read by the port's own reader
+(``yaml_io.py``; the GPU machine has no PyYAML), and ``save_config``
+writes ``<work_dir>/config.yaml``, which the JAX package's ``load_config``
+reads back equal.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import json
 import os
 import re
 from typing import Any, Dict, Optional
+
+from stylesinger_torch import yaml_io
 
 
 class Config(dict):
@@ -108,6 +115,7 @@ DEFAULTS: Dict[str, Any] = dict(
     f0_std=100.0,
     # --- speaker ---
     use_spk_id=False,
+    num_spk=150,
     # reference quirk: the speaker d-vector is computed from the NATIVE-
     # rate wav through the 16 kHz front-end (style_binarizer.py:325,
     # inference/StyleSinger.py:100-104); False = proper 16 kHz resample
@@ -282,33 +290,125 @@ READ_WITH_GET_DATA: Dict[str, Any] = dict(
 )
 
 
-# The keys the port reads where a recipe of ``egs/`` (with its bases)
-# differs from DEFAULTS; tests/test_torch_config.py holds each against the
-# JAX package's ``load_config("egs/<name>.yaml")``.
-RECIPES: Dict[str, Dict[str, Any]] = {
-    # egs/stylesinger.yaml
-    "stylesinger": dict(
-        vocoder_compute_dtype="bfloat16",
-        binarizer_cls="stylesinger_tpu.data.binarize.StyleSingingBinarizer",
-        write_tsd=True),
-}
+# The repo's recipe files: ``recipe=NAME`` is ``egs/NAME.yaml``.
+EGS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "egs")
 
 
-def load_config(recipe: Optional[str] = None, **kwargs: Any) -> Config:
+def recipe_names() -> list:
+    """The recipes of ``egs/`` (its top-level YAML files), sorted."""
+    if not os.path.isdir(EGS_DIR):
+        return []
+    return sorted(f[:-len(".yaml")] for f in os.listdir(EGS_DIR)
+                  if f.endswith(".yaml"))
+
+
+def recipe_path(name: str) -> str:
+    """The file of the recipe ``name``: ``egs/<name>.yaml``; an unknown
+    name raises."""
+    if name not in recipe_names():
+        raise KeyError(f"unknown recipe {name!r}; known: {recipe_names()}")
+    return os.path.join(EGS_DIR, f"{name}.yaml")
+
+
+def _deep_merge(dst: Dict[str, Any], src: Dict[str, Any]) -> Dict[str, Any]:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v
+    return dst
+
+
+def _load_yaml_cascade(path: str, visited: Optional[set] = None
+                       ) -> Dict[str, Any]:
+    """The YAML file ``path`` merged over its ``base_config`` chain (a path
+    or a list, relative to the file, else as given), children over
+    parents, depth first; a cycle raises."""
+    visited = visited if visited is not None else set()
+    apath = os.path.abspath(path)
+    if apath in visited:
+        raise ValueError(f"base_config cycle at {path}")
+    visited.add(apath)
+    raw = yaml_io.load(path) or {}
+    merged: Dict[str, Any] = {}
+    bases = raw.pop("base_config", [])
+    if isinstance(bases, str):
+        bases = [bases]
+    for base in bases:
+        base_path = base if os.path.isabs(base) else os.path.join(
+            os.path.dirname(path), base)
+        if not os.path.exists(base_path):
+            base_path = base
+        _deep_merge(merged, _load_yaml_cascade(base_path, visited))
+    _deep_merge(merged, raw)
+    return merged
+
+
+def _split_overrides(overrides: str) -> list:
+    """``"a=1,b=[2,3]"`` split on the commas outside brackets."""
+    return re.split(r",(?![^\[\(]*[\]\)])", overrides or "")
+
+
+def apply_overrides(cfg: Config, overrides: str) -> Config:
+    """``"a=1,b.c=2"`` applied to ``cfg`` in place, values coerced as the
+    JAX CLI's ``--hparams``; a dotted key sets a key of a nested map."""
+    for part in _split_overrides(overrides):
+        if not part.strip():
+            continue
+        key, value = part.split("=", 1)
+        node: Dict[str, Any] = cfg
+        subkeys = key.strip().split(".")
+        for sk in subkeys[:-1]:
+            node = node.setdefault(sk, {})
+        node[subkeys[-1]] = _coerce(value.strip())
+    return cfg
+
+
+def load_config(path: Optional[str] = None, overrides: str = "",
+                recipe: Optional[str] = None, **kwargs: Any) -> Config:
     """Defaults (``DEFAULTS``, ``READ_WITH_GET``, ``READ_WITH_GET_DATA``)
-    <- ``RECIPES[recipe]``
-    <- keyword overrides.  The config defaults are ``load_config()``; the
-    repo's recipe is ``load_config(recipe="stylesinger")``."""
+    <- the YAML cascade of ``path`` <- the ``overrides`` string <- keyword
+    overrides.  The config defaults are ``load_config()``; the repo's recipe
+    is ``load_config("egs/stylesinger.yaml")``, or
+    ``load_config(recipe="stylesinger")`` (a recipe name in place of its
+    path)."""
     cfg = Config(json.loads(json.dumps(
         {**DEFAULTS, **READ_WITH_GET, **READ_WITH_GET_DATA})))
     if recipe is not None:
-        if recipe not in RECIPES:
-            raise KeyError(f"unknown recipe {recipe!r}; known: "
-                           f"{sorted(RECIPES)}")
-        cfg.update(json.loads(json.dumps(RECIPES[recipe])))
+        if path is not None:
+            raise ValueError("load_config: a path or a recipe, not both")
+        path = recipe_path(recipe)
+    if path is not None:
+        _deep_merge(cfg, _load_yaml_cascade(path))
+    explicit = {p.split("=", 1)[0].strip()
+                for p in _split_overrides(overrides)
+                if p.strip() and "=" in p} | set(kwargs)
+    apply_overrides(cfg, overrides)
     cfg.update(kwargs)
-    apply_spec_stats(cfg, set(kwargs))
+    apply_spec_stats(cfg, explicit)
     return cfg
+
+
+def save_config(cfg: Dict[str, Any], work_dir: str) -> str:
+    """The config written to ``<work_dir>/config.yaml`` (one sorted key a
+    line, values in flow style); returns the path."""
+    os.makedirs(work_dir, exist_ok=True)
+    out = os.path.join(work_dir, "config.yaml")
+    with open(out, "w", encoding="utf-8") as f:
+        f.write(yaml_io.dumps(dict(cfg)))
+    return out
+
+
+def load_work_dir_config(work_dir: str) -> Config:
+    """The config a training run saved in ``work_dir``: its
+    ``config.yaml``, or the ``config.json`` that ``run.py train`` wrote
+    before it wrote YAML."""
+    fn = os.path.join(work_dir, "config.yaml")
+    if os.path.exists(fn):
+        return Config(yaml_io.load(fn))
+    with open(os.path.join(work_dir, "config.json")) as f:
+        return Config(json.load(f))
 
 
 def _coerce(value: str) -> Any:
@@ -331,17 +431,18 @@ def _coerce(value: str) -> Any:
 
 def parse_hparams(overrides: str) -> Dict[str, Any]:
     """``"a=1,b=[2,3]"`` -> {"a": 1, "b": [2, 3]}, values coerced as the
-    JAX package's ``--hparams`` does (commas inside brackets stay).  The
-    port's config is flat: a dotted key raises."""
+    JAX package's ``--hparams`` does (commas inside brackets stay), as
+    keyword overrides: a dotted key raises (``apply_overrides`` /
+    ``load_config(overrides=...)`` take those)."""
     out: Dict[str, Any] = {}
-    for part in re.split(r",(?![^\[\(]*[\]\)])", overrides or ""):
+    for part in _split_overrides(overrides):
         if not part.strip():
             continue
         key, value = part.split("=", 1)
         key = key.strip()
         if "." in key:
-            raise ValueError(f"--hparams {key!r}: the port's config has no "
-                             "nested keys")
+            raise ValueError(f"--hparams {key!r}: a nested key is no "
+                             "keyword; pass it to load_config(overrides=)")
         out[key] = _coerce(value.strip())
     return out
 

@@ -108,20 +108,30 @@ def collate_batch(samples: List[Dict], frame_buckets: Sequence[int],
     if emo and "emo_embed" in samples[0]:
         batch["emo_embed"] = stack("emo_embed",
                                    samples[0]["emo_embed"].shape[0])
+    if "spk_id" in samples[0]:
+        # speaker ids (use_spk_id); a padding row takes id 0
+        batch["spk_id"] = np.asarray(
+            [s["spk_id"] for s in samples] + [0] * (b - len(samples)),
+            np.int64)
     return batch
 
 
 class BucketBatcher:
     """One epoch's batches: size-sorted shuffle (seeded from ``cfg["seed"]``
-    and the epoch) -> batch_by_size -> static-shape collate."""
+    and the epoch) -> batch_by_size -> static-shape collate.  With
+    ``world_size`` > 1, rank ``rank`` takes every ``world_size``-th batch
+    from its ``rank``-th on (the reference's per-replica round robin)."""
 
     def __init__(self, dataset, cfg: Any, shuffle: bool = True,
                  max_tokens: Optional[int] = None,
-                 max_sentences: Optional[int] = None):
+                 max_sentences: Optional[int] = None, rank: int = 0,
+                 world_size: int = 1):
         self.ds = dataset
         self.cfg = cfg
         self.shuffle = shuffle
         self.seed = cfg["seed"]
+        self.rank = rank
+        self.world_size = world_size
         self.max_tokens = max_tokens or cfg["max_tokens"]
         self.max_sentences = max_sentences or cfg["max_sentences"]
 
@@ -142,7 +152,7 @@ class BucketBatcher:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + 1000 + epoch)
             rng.shuffle(batches)
-        for idxs in batches:
+        for idxs in batches[self.rank::self.world_size]:
             samples = [self.ds[i] for i in idxs]
             yield collate_batch(samples, self.cfg["frame_buckets"],
                                 self.cfg["token_buckets"],
@@ -155,8 +165,9 @@ class EpochBatches:
     shuffle epoch, so the step loop, which re-iterates at the end of an
     epoch, sees a fresh permutation every pass."""
 
-    def __init__(self, dataset, cfg):
-        self._batcher = BucketBatcher(dataset, cfg)
+    def __init__(self, dataset, cfg, rank: int = 0, world_size: int = 1):
+        self._batcher = BucketBatcher(dataset, cfg, rank=rank,
+                                      world_size=world_size)
         self.epoch = 0
 
     def __iter__(self) -> Iterator[Dict]:

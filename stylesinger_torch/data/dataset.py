@@ -88,6 +88,8 @@ class StyleSingerDataset:
                 sample["txt_tokens"], np.asarray(sil_ids)).astype(np.float32)
         if c["use_spk_embed"] and "spk_embed" in item:
             sample["spk_embed"] = np.asarray(item["spk_embed"], np.float32)
+        if c["use_spk_id"] and "spk_id" in item:
+            sample["spk_id"] = int(item["spk_id"])
         if c["emo"] and "emo_embed" in item:
             sample["emo_embed"] = np.asarray(item["emo_embed"], np.float32)
         return sample

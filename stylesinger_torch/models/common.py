@@ -6,6 +6,12 @@ carry the flax names of the JAX modules (``layer_0``, ``LayerNorm_0``,
 flax tree.  LayerNorms use flax's eps of 1e-6; GELU is the tanh
 approximation, as ``jax.nn.gelu`` is by default.
 
+Under ``compute_dtype: bfloat16`` (``models/precision.py``) the layers
+follow flax's dtype rules: :class:`Dense`, :class:`Conv` and
+:class:`LayerNorm` take ``compute=True`` where the JAX module passes
+``dtype=precision.compute_dtype()``, and the blocks cast their inputs and
+masks where the JAX blocks call ``precision.cast``.
+
 Dropout sits where the JAX modules have ``nn.Dropout``.  Each ``forward``
 takes ``drop``, the step's dropout noise source (``bernoulli(p, shape)``,
 ``models/diffusion.py::Noise``), or None for the deterministic pass
@@ -22,6 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stylesinger_torch.models import precision
+from stylesinger_torch.models.precision import const
+
 LN_EPS = 1e-6
 
 
@@ -29,8 +38,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def LayerNorm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm``: statistics in f32; the result in the compute
+    dtype with ``compute=True`` (``LayerNorm(dtype=dt)``), else f32."""
+
+    def __init__(self, dim: int, compute: bool = False):
+        super().__init__(dim, eps=LN_EPS)
+        self.compute = compute
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        dt = precision.compute_dtype() if self.compute else None
+        return y if dt is None else y.to(dt)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` under flax ``Dense``'s dtype rule: ``compute=True`` is
+    ``Dense(dtype=precision.compute_dtype())``, else ``Dense()``, which
+    computes in the promotion of its input and its f32 parameters."""
+
+    def __init__(self, c_in: int, c_out: int, bias: bool = True,
+                 compute: bool = False):
+        super().__init__(c_in, c_out, bias=bias)
+        self.compute = compute
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = precision.module_dtype(x, self.weight, self.compute)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 def dropout(x: torch.Tensor, rate: float, drop) -> torch.Tensor:
@@ -46,13 +82,17 @@ def dropout(x: torch.Tensor, rate: float, drop) -> torch.Tensor:
 
 class Conv(nn.Module):
     """1-D conv on [B, T, C] with flax padding semantics: ``"SAME"`` pads
-    (k-1)*d split floor-left, or an explicit (left, right) pair."""
+    (k-1)*d split floor-left, or an explicit (left, right) pair.
+
+    ``compute`` is :class:`Dense`'s dtype rule: True is flax
+    ``Conv(dtype=precision.compute_dtype())``, False ``Conv()``."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, *,
                  dilation: int = 1, stride: int = 1,
                  padding: Union[str, Tuple[int, int]] = "SAME",
-                 bias: bool = True):
+                 bias: bool = True, compute: bool = False):
         super().__init__()
+        self.compute = compute
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
         self.dilation = dilation
@@ -63,11 +103,10 @@ class Conv(nn.Module):
         self.pad = tuple(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Runs in x's type (the f32 weights are cast to a bf16 x's type,
-        as a flax ``Conv(dtype=bfloat16)`` casts its parameters)."""
-        y = x.transpose(1, 2)
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        dt = precision.module_dtype(x, self.weight, self.compute)
+        y = x.to(dt).transpose(1, 2)
+        w = self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
         left, right = self.pad
         if left == right:
             y = F.conv1d(y, w, b, self.stride, left, self.dilation)
@@ -133,7 +172,7 @@ class Embedding(nn.Module):
 class LambdaDense(nn.Module):
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
-        self.Dense_0 = nn.Linear(c_in, c_out)
+        self.Dense_0 = Dense(c_in, c_out, compute=True)
 
     def forward(self, x):
         return self.Dense_0(x)
@@ -147,13 +186,14 @@ def _masked_softmax(logits: torch.Tensor, kv_mask: torch.Tensor
 
 
 class MultiheadSelfAttention(nn.Module):
-    """Scaled-dot self-attention without biases."""
+    """Scaled-dot self-attention without biases; the logits and the softmax
+    in f32, the probabilities cast to the compute dtype before ``@ v``."""
 
     def __init__(self, hidden: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(hidden, 3 * hidden, bias=False)
-        self.out = nn.Linear(hidden, hidden, bias=False)
+        self.qkv = Dense(hidden, 3 * hidden, bias=False, compute=True)
+        self.out = Dense(hidden, hidden, bias=False, compute=True)
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor
                 ) -> torch.Tensor:
@@ -162,9 +202,9 @@ class MultiheadSelfAttention(nn.Module):
         d = c // h
         q, k, v = (a.reshape(b, t, h, d).transpose(1, 2)
                    for a in self.qkv(x).split(c, dim=-1))
-        probs = _masked_softmax(q @ k.transpose(-1, -2) / math.sqrt(d),
-                                key_padding_mask)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, c)
+        logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(d)
+        probs = _masked_softmax(logits, key_padding_mask)
+        out = (precision.cast(probs) @ v).transpose(1, 2).reshape(b, t, c)
         return self.out(out)
 
 
@@ -178,7 +218,7 @@ class MultiheadCrossAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout = dropout
         for name in ("q", "k", "v", "out"):
-            setattr(self, name, nn.Linear(hidden, hidden, bias=use_bias))
+            setattr(self, name, Dense(hidden, hidden, bias=use_bias))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 kv_nonpadding: torch.Tensor, drop=None
@@ -209,11 +249,12 @@ class TransformerFFN(nn.Module):
         self.kernel_size = kernel_size
         self.act = _ACTS[act]
         self.dropout = dropout
-        self.Conv_0 = Conv(hidden, filter_size, kernel_size)
+        self.Conv_0 = Conv(hidden, filter_size, kernel_size, compute=True)
         self.LambdaDense_0 = LambdaDense(filter_size, hidden)
 
     def forward(self, x, drop=None):
-        y = self.act(self.Conv_0(x) * self.kernel_size ** -0.5)
+        y = self.Conv_0(x)
+        y = self.act(y * const(self.kernel_size ** -0.5, y.dtype))
         return self.LambdaDense_0(dropout(y, self.dropout, drop))
 
 
@@ -226,17 +267,18 @@ class EncSALayer(nn.Module):
         self.num_heads = num_heads
         self.dropout = dropout
         if num_heads > 0:
-            self.LayerNorm_0 = LayerNorm(hidden)
+            self.LayerNorm_0 = LayerNorm(hidden, compute=True)
             self.MultiheadSelfAttention_0 = MultiheadSelfAttention(
                 hidden, num_heads)
         ln = "LayerNorm_1" if num_heads > 0 else "LayerNorm_0"
-        setattr(self, ln, LayerNorm(hidden))
+        setattr(self, ln, LayerNorm(hidden, compute=True))
         self._ffn_ln = ln
         self.TransformerFFN_0 = TransformerFFN(hidden, 4 * hidden,
                                                kernel_size, act, dropout)
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
-        mask = nonpadding[..., None]
+        mask = precision.cast(nonpadding[..., None])
+        x = precision.cast(x)
         if self.num_heads > 0:
             y = self.MultiheadSelfAttention_0(self.LayerNorm_0(x), nonpadding)
             x = (x + dropout(y, self.dropout, drop)) * mask
@@ -261,36 +303,60 @@ class FFTBlocks(nn.Module):
             setattr(self, f"layer_{i}",
                     EncSALayer(hidden, num_heads, kernel_size,
                                dropout=dropout))
-        self.LayerNorm_0 = LayerNorm(hidden)
+        self.LayerNorm_0 = LayerNorm(hidden, compute=True)
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
         if self.use_pos_embed:
             x = x + self.pos_embed_alpha * self.pos(nonpadding)
             x = dropout(x, self.dropout, drop)
-        mask = nonpadding[..., None]
+        x = precision.cast(x)
+        mask = precision.cast(nonpadding[..., None])
         x = x * mask
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, nonpadding, drop) * mask
         return self.LayerNorm_0(x) * mask
 
 
+def espnet_rel_pos_table(n_positions: int, dim: int) -> np.ndarray:
+    """ESPnet ``RelPositionalEncoding`` table, rows in reversed position
+    order (row i encodes position n_positions - 1 - i)."""
+    pos = np.arange(n_positions - 1, -1, -1.0)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * -(math.log(10000.0) / dim))
+    table = np.zeros((n_positions, dim), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
 class FastspeechEncoder(nn.Module):
-    """Phone embedding (* sqrt(d)) + positions + FFT stack."""
+    """Phone embedding (* sqrt(d)) + positions + FFT stack.  ``rel_pos``
+    adds the last T rows of the ESPnet table to every position (padding
+    included) in place of the mask-addressed fairseq positions."""
 
     def __init__(self, vocab_size: int, hidden: int, num_layers: int,
-                 kernel_size: int, num_heads: int = 2, dropout: float = 0.1):
+                 kernel_size: int, num_heads: int = 2, dropout: float = 0.1,
+                 rel_pos: bool = False):
         super().__init__()
         self.hidden = hidden
         self.dropout = dropout
+        self.rel_pos = rel_pos
         self.embed_tokens = Embedding(vocab_size, hidden)
-        self.pos = SinusoidalPositionalEmbedding(hidden)
+        if rel_pos:
+            self.register_buffer("rel_table", torch.as_tensor(
+                espnet_rel_pos_table(4096, hidden)), persistent=False)
+        else:
+            self.pos = SinusoidalPositionalEmbedding(hidden)
         self.blocks = FFTBlocks(hidden, num_layers, kernel_size, num_heads,
                                 use_pos_embed=False, dropout=dropout)
 
     def forward(self, txt_tokens: torch.Tensor, drop=None) -> torch.Tensor:
         nonpadding = (txt_tokens > 0).to(torch.float32)
         x = self.embed_tokens(txt_tokens) * math.sqrt(self.hidden)
-        x = dropout(x + self.pos(nonpadding), self.dropout, drop)
+        if self.rel_pos:
+            x = x + self.rel_table[None, -x.shape[1]:]
+        else:
+            x = x + self.pos(nonpadding)
+        x = dropout(x, self.dropout, drop)
         return self.blocks(x, nonpadding, drop)
 
 
@@ -316,16 +382,17 @@ class DurationPredictor(nn.Module):
         self.dropout = dropout
         for i in range(n_layers):
             setattr(self, f"conv_{i}",
-                    Conv(c_in if i == 0 else hidden, hidden, kernel_size))
-            setattr(self, f"ln_{i}", LayerNorm(hidden))
-        self.out = nn.Linear(hidden, 1)
+                    Conv(c_in if i == 0 else hidden, hidden, kernel_size,
+                         compute=True))
+            setattr(self, f"ln_{i}", LayerNorm(hidden, compute=True))
+        self.out = Dense(hidden, 1)
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
-        mask = nonpadding[..., None]
+        mask = precision.cast(nonpadding[..., None])
         for i in range(self.n_layers):
             x = getattr(self, f"ln_{i}")(F.relu(getattr(self, f"conv_{i}")(x)))
             x = dropout(x, self.dropout, drop) * mask
-        return (self.out(x) * mask)[..., 0]
+        return (self.out(x) * nonpadding[..., None])[..., 0]
 
     @staticmethod
     def out2dur(log_dur: torch.Tensor, offset: float = 1.0) -> torch.Tensor:
@@ -348,12 +415,13 @@ class PitchPredictor(nn.Module):
         self.pos = SinusoidalPositionalEmbedding(c_in)
         for i in range(n_layers):
             setattr(self, f"conv_{i}",
-                    Conv(c_in if i == 0 else hidden, hidden, kernel_size))
-            setattr(self, f"ln_{i}", LayerNorm(hidden))
-        self.out = nn.Linear(hidden, odim)
+                    Conv(c_in if i == 0 else hidden, hidden, kernel_size,
+                         compute=True))
+            setattr(self, f"ln_{i}", LayerNorm(hidden, compute=True))
+        self.out = Dense(hidden, odim)
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
-        x = x + self.pos_embed_alpha * self.pos(nonpadding)
+        x = precision.cast(x + self.pos_embed_alpha * self.pos(nonpadding))
         for i in range(self.n_layers):
             x = getattr(self, f"ln_{i}")(F.relu(getattr(self, f"conv_{i}")(x)))
             x = dropout(x, self.dropout, drop)
@@ -385,19 +453,20 @@ class ConvBlocksResidual(nn.Module):
         self.kernel_size = kernel_size
         self.dropout = dropout
         for i in range(n):
-            setattr(self, f"ln_{i}", LayerNorm(channels))
+            setattr(self, f"ln_{i}", LayerNorm(channels, compute=True))
             setattr(self, f"conv_a_{i}",
                     Conv(channels, c_multiple * channels, kernel_size,
-                         dilation=dilation))
+                         dilation=dilation, compute=True))
             setattr(self, f"conv_b_{i}",
-                    Conv(c_multiple * channels, channels, 1))
+                    Conv(c_multiple * channels, channels, 1, compute=True))
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
-        mask = nonpadding[..., None]
+        mask = precision.cast(nonpadding[..., None])
+        x = precision.cast(x)
         for i in range(self.n):
             y = getattr(self, f"conv_a_{i}")(getattr(self, f"ln_{i}")(x))
             y = getattr(self, f"conv_b_{i}")(
-                gelu(y * self.kernel_size ** -0.5))
+                gelu(y * const(self.kernel_size ** -0.5, y.dtype)))
             x = (x + dropout(y, self.dropout, drop)) * mask
         return x
 
@@ -414,11 +483,11 @@ class ConvBlocks(nn.Module):
             setattr(self, f"res_{i}",
                     ConvBlocksResidual(channels, kernel_size, d,
                                        dropout=dropout))
-        self.last_norm = LayerNorm(channels)
-        self.post = Conv(channels, out_dims, 3)
+        self.last_norm = LayerNorm(channels, compute=True)
+        self.post = Conv(channels, out_dims, 3, compute=True)
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor, drop=None):
-        mask = nonpadding[..., None]
+        mask = precision.cast(nonpadding[..., None])
         for i in range(self.n):
             x = getattr(self, f"res_{i}")(x, nonpadding, drop)
         x = self.last_norm(x * mask) * mask
@@ -436,12 +505,13 @@ class WN(nn.Module):
         for i in range(n_layers):
             dilation = dilation_rate ** i if dilation_rate > 1 else 1
             setattr(self, f"in_{i}", Conv(hidden, 2 * hidden, kernel_size,
-                                          dilation=dilation))
+                                          dilation=dilation, compute=True))
             rs = 2 * hidden if i < n_layers - 1 else hidden
-            setattr(self, f"res_skip_{i}", Conv(hidden, rs, 1))
+            setattr(self, f"res_skip_{i}", Conv(hidden, rs, 1, compute=True))
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor):
-        mask = nonpadding[..., None]
+        mask = precision.cast(nonpadding[..., None])
+        x = precision.cast(x)
         hc = self.hidden
         output = torch.zeros_like(x)
         for i in range(self.n_layers):

@@ -1,6 +1,8 @@
 """Denoisers (port of ``stylesinger_tpu/models/diffnet.py``), batch-first:
 the DiffWave-style ``DiffNet`` (mel) and ``DDiffNet`` (joint f0 + uv), and
-the transformer ``FFTDenoiser`` (mel, ``diff_decoder_type: fft``)."""
+the transformer ``FFTDenoiser`` (mel, ``diff_decoder_type: fft``).  Under
+``compute_dtype: bfloat16`` the layers take the compute dtype where the JAX
+layers do (``models/precision.py``); the output heads stay f32."""
 
 from __future__ import annotations
 
@@ -10,7 +12,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stylesinger_torch.models.common import Conv, FastspeechDecoder
+from stylesinger_torch.models import precision
+from stylesinger_torch.models.common import Conv, Dense, FastspeechDecoder
+from stylesinger_torch.models.precision import const
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -30,8 +34,8 @@ class DiffusionStepMLP(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
-        self.fc1 = nn.Linear(dim, 4 * dim)
-        self.fc2 = nn.Linear(4 * dim, dim)
+        self.fc1 = Dense(dim, 4 * dim, compute=True)
+        self.fc2 = Dense(4 * dim, dim, compute=True)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         return self.fc2(mish(self.fc1(timestep_embedding(t, self.dim))))
@@ -43,18 +47,22 @@ class ResidualBlock(nn.Module):
     def __init__(self, channels: int, cond_dim: int, dilation: int):
         super().__init__()
         self.channels = channels
-        self.diffusion_projection = nn.Linear(channels, channels)
-        self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation)
-        self.conditioner_projection = Conv(cond_dim, 2 * channels, 1)
-        self.output_projection = Conv(channels, 2 * channels, 1)
+        self.diffusion_projection = Dense(channels, channels, compute=True)
+        self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation,
+                                 compute=True)
+        self.conditioner_projection = Conv(cond_dim, 2 * channels, 1,
+                                           compute=True)
+        self.output_projection = Conv(channels, 2 * channels, 1,
+                                      compute=True)
 
     def forward(self, x, cond, step_emb):
         c = self.channels
+        x = precision.cast(x)
         y = x + self.diffusion_projection(step_emb)[:, None, :]
         y = self.dilated_conv(y) + self.conditioner_projection(cond)
         y = torch.sigmoid(y[..., :c]) * torch.tanh(y[..., c:])
         y = self.output_projection(y)
-        return (x + y[..., :c]) / math.sqrt(2.0), y[..., c:]
+        return (x + y[..., :c]) / const(math.sqrt(2.0), y.dtype), y[..., c:]
 
 
 class _Stack(nn.Module):
@@ -68,8 +76,8 @@ class _Stack(nn.Module):
         for i in range(residual_layers):
             setattr(self, f"residual_{i}", ResidualBlock(
                 channels, cond_dim, 2 ** (i % dilation_cycle_length)))
-        self.skip_projection = Conv(channels, channels, 1)
-        self.output_projection = Conv(channels, out_dims, 1)
+        self.skip_projection = Conv(channels, channels, 1, compute=True)
+        self.output_projection = Conv(channels, out_dims, 1, compute=False)
 
     def run(self, x, t, cond):
         step_emb = self.mlp(t)
@@ -78,7 +86,7 @@ class _Stack(nn.Module):
             x, skip = getattr(self, f"residual_{i}")(x, cond, step_emb)
             skips = skips + skip
         x = F.relu(self.skip_projection(
-            skips / math.sqrt(self.residual_layers)))
+            skips / const(math.sqrt(self.residual_layers), skips.dtype)))
         return self.output_projection(x)
 
 
@@ -90,7 +98,8 @@ class DiffNet(_Stack):
                  dilation_cycle_length: int = 4):
         super().__init__(residual_channels, cond_dim, in_dims,
                          residual_layers, dilation_cycle_length)
-        self.input_projection = Conv(in_dims, residual_channels, 1)
+        self.input_projection = Conv(in_dims, residual_channels, 1,
+                                     compute=True)
 
     def forward(self, spec, t, cond):
         return self.run(F.relu(self.input_projection(spec)), t, cond)
@@ -106,14 +115,15 @@ class DDiffNet(_Stack):
                  dilation_cycle_length: int = 4):
         super().__init__(residual_channels, cond_dim, in_dims + num_classes,
                          residual_layers, dilation_cycle_length)
-        self.input_projection = Conv(in_dims, residual_channels // 2, 1)
+        self.input_projection = Conv(in_dims, residual_channels // 2, 1,
+                                     compute=True)
         self.uv_embed = nn.Embedding(num_classes, residual_channels // 2)
 
     def forward(self, f0, uv, t, cond, nonpadding):
-        mask = nonpadding[..., None]
-        x = torch.cat([self.input_projection(f0), self.uv_embed(uv)],
-                      dim=-1) * mask
-        return self.run(x, t, cond) * mask
+        mask = precision.cast(nonpadding[..., None])
+        x = torch.cat([self.input_projection(f0),
+                       precision.cast(self.uv_embed(uv))], dim=-1) * mask
+        return self.run(x, t, cond) * nonpadding[..., None]
 
 
 class FFTDenoiser(nn.Module):
@@ -128,13 +138,13 @@ class FFTDenoiser(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         dim = residual_channels
-        self.input_projection = Conv(in_dims, dim, 1)
+        self.input_projection = Conv(in_dims, dim, 1, compute=False)
         self.mlp = DiffusionStepMLP(dim)
-        self.get_decode_inp = nn.Linear(2 * dim + hidden_size, hidden_size)
+        self.get_decode_inp = Dense(2 * dim + hidden_size, hidden_size)
         self.decoder = FastspeechDecoder(hidden_size, num_layers,
                                          kernel_size, num_heads=num_heads,
                                          dropout=dropout)
-        self.get_mel_out = nn.Linear(hidden_size, in_dims)
+        self.get_mel_out = Dense(hidden_size, in_dims)
 
     def forward(self, spec, t, cond, drop=None):
         x = self.input_projection(spec)

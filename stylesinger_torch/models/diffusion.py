@@ -19,6 +19,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from stylesinger_torch.parallel.mesh import (
+    global_mean, global_numel, global_sum,
+)
+
 _FIELDS = (
     "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
     "sqrt_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",
@@ -297,11 +301,11 @@ def gm_mixed_loss(denoise_fn: Callable, sched: Schedule, f0: torch.Tensor,
                                                 -np.log(num_classes))),
         nonpadding)
     pt = torch.full_like(lt, 1.0 / big_t)
-    loss_multi = (lt / pt + kl_prior).mean()
+    loss_multi = global_mean(lt / pt + kl_prior)
 
     mask = (nonpadding * (uv == 0).to(nonpadding.dtype))[..., None]
     loss_gauss = (torch.abs(eps - eps_pred) * mask).sum() / torch.clamp_min(
-        (mask + 1e-8).sum(), 1e-8)
+        global_sum(mask.sum(), "voiced") + 1e-8 * global_numel(mask), 1e-8)
     return loss_multi, loss_gauss
 
 
@@ -318,10 +322,10 @@ def shallow_p_losses(denoise_fn: Callable, sched: Schedule,
     err = torch.abs(eps - denoise_fn(gaussian_q_sample(sched, x_start, t,
                                                        eps), t))
     if nonpadding is None:
-        return err.mean()
+        return global_mean(err)
     mask = nonpadding[..., None]
     return (err * mask).sum() / torch.clamp_min(
-        mask.sum() * x_start.shape[-1], 1e-8)
+        global_sum(mask.sum(), "frames") * x_start.shape[-1], 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -562,6 +566,17 @@ def sample_shallow_dpmpp(denoise_fn: Callable, sched: Schedule,
         x = float(sig_ratio) * x + float(gain) * d
         prev_x0 = x0
     return x
+
+
+def prodiff_train(denoise_fn: Callable, sched: Schedule, timesteps: int,
+                  x_start: torch.Tensor, noise) -> torch.Tensor:
+    """ProDiff's training pass: ``x_start`` [B, T, M] diffused to a t drawn
+    in [0, timesteps] and the x0 the denoiser predicts from it (the caller
+    applies the mel losses).  Draws: ``randint`` t, then ``normal``."""
+    b = x_start.shape[0]
+    t = noise.randint((b,), 0, timesteps + 1)
+    eps = noise.normal(x_start.shape)
+    return denoise_fn(gaussian_q_sample(sched, x_start, t, eps), t)
 
 
 def sample_prodiff(denoise_fn: Callable, sched: Schedule, timesteps: int,

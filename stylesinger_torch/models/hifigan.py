@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stylesinger_torch.kernels.mrf import fused_mrf_blocks, takes_stage
+from stylesinger_torch.models import precision
 from stylesinger_torch.models.common import Conv
 
 LRELU_SLOPE = 0.1
@@ -99,8 +100,10 @@ class ResBlock1(nn.Module):
         self.dilations = tuple(dilations)
         for i, d in enumerate(self.dilations):
             setattr(self, f"conv1_{i}",
-                    Conv(channels, channels, kernel_size, dilation=d))
-            setattr(self, f"conv2_{i}", Conv(channels, channels, kernel_size))
+                    Conv(channels, channels, kernel_size, dilation=d,
+                         compute=True))
+            setattr(self, f"conv2_{i}", Conv(channels, channels, kernel_size,
+                                             compute=True))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -135,7 +138,8 @@ class ResBlock2(nn.Module):
         self.dilations = tuple(dilations)
         for i, d in enumerate(self.dilations):
             setattr(self, f"conv_{i}",
-                    Conv(channels, channels, kernel_size, dilation=d))
+                    Conv(channels, channels, kernel_size, dilation=d,
+                         compute=True))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,7 +218,7 @@ class HifiGanGenerator(nn.Module):
             self.m_source = SourceModuleHnNSF(
                 sampling_rate=c["audio_sample_rate"],
                 harmonic_num=c.get("harmonic_num", 8), hop_size=total_up)
-        self.conv_pre = Conv(c["audio_num_mel_bins"], ch0, 7)
+        self.conv_pre = Conv(c["audio_num_mel_bins"], ch0, 7, compute=True)
         for i, (u, k) in enumerate(zip(self.rates,
                                        c["upsample_kernel_sizes"])):
             c_prev, c_cur = ch0 // (2 ** i), ch0 // (2 ** (i + 1))
@@ -222,12 +226,14 @@ class HifiGanGenerator(nn.Module):
             if self.use_nsf:
                 s = int(np.prod(self.rates[i + 1:]))
                 setattr(self, f"noise_conv_{i}", Conv(
-                    1, c_cur, 2 * s, stride=s, padding=(s // 2, s // 2))
-                    if i + 1 < len(self.rates) else Conv(1, c_cur, 1))
+                    1, c_cur, 2 * s, stride=s, padding=(s // 2, s // 2),
+                    compute=True) if i + 1 < len(self.rates)
+                    else Conv(1, c_cur, 1, compute=True))
             for j, (rk, rd) in enumerate(zip(self.rk, self.rd)):
                 setattr(self, f"resblock_{i}_{j}",
                         self.resblock_cls(c_cur, rk, rd))
-        self.conv_post = Conv(ch0 // (2 ** len(self.rates)), c_out, 7)
+        self.conv_post = Conv(ch0 // (2 ** len(self.rates)), c_out, 7,
+                              compute=True)
         self.mrf_block = int(c.get("mrf_block", 2048))
         self.mrf_halo = max(self.resblock_cls.halo(k, d)
                             for k, d in zip(self.rk, self.rd))
@@ -280,23 +286,26 @@ class HifiGanGenerator(nn.Module):
         """Draws (with NSF): the harmonic source's uniform, then normal.
         Differentiable: under autograd every MRF group runs the resblock
         modules (:meth:`mrf_route`); inference callers run it under
-        ``torch.no_grad()``."""
+        ``torch.no_grad()``.  The convs run in ``vocoder_compute_dtype``
+        (``precision.activation_dtype``)."""
         total_up = int(np.prod(self.rates))
         har = None
         if self.use_nsf and f0 is not None:
             har = self.m_source(torch.repeat_interleave(f0, total_up, dim=-1),
                                 noise).to(self.dtype)
-        x = self.conv_pre(mel.to(self.dtype))
-        for i, u in enumerate(self.rates):
-            x = getattr(self, f"up_{i}")(_lrelu(x))
-            tgt = mel.shape[1] * int(np.prod(self.rates[: i + 1]))
-            if x.shape[1] != tgt:
-                x = x[:, :tgt] if x.shape[1] > tgt else F.pad(
-                    x, (0, 0, 0, tgt - x.shape[1]))
-            if har is not None:
-                x = x + getattr(self, f"noise_conv_{i}")(har)[:, : x.shape[1]]
-            x = self._mrf(i, x)
-        x = self.conv_post(F.leaky_relu(x, 0.01))
+        with precision.activation_dtype(self.dtype):
+            x = self.conv_pre(mel.to(self.dtype))
+            for i, u in enumerate(self.rates):
+                x = getattr(self, f"up_{i}")(_lrelu(x))
+                tgt = mel.shape[1] * int(np.prod(self.rates[: i + 1]))
+                if x.shape[1] != tgt:
+                    x = x[:, :tgt] if x.shape[1] > tgt else F.pad(
+                        x, (0, 0, 0, tgt - x.shape[1]))
+                if har is not None:
+                    x = x + getattr(self, f"noise_conv_{i}")(har)[
+                        :, : x.shape[1]]
+                x = self._mrf(i, x)
+            x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x.float())[..., 0]
 
 

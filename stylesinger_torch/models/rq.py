@@ -4,7 +4,10 @@ The codebooks and their EMA statistics are buffers (the JAX package keeps
 them in the ``codebook`` collection).  In training mode each codebook's
 buffers take an EMA step on the (detached) inputs, with padded frames
 masked out, and the codes no real frame used lately are restarted at
-jittered input vectors.
+jittered input vectors.  In a data-parallel step (``parallel/mesh.py``)
+every rank takes that step on the global batch gathered in rank order, so
+the statistics, the restart candidates and their draws are the global
+batch's and the buffers stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from stylesinger_torch.parallel.mesh import gather_rows, global_mean, global_sum
 
 
 class VQEmbedding(nn.Module):
@@ -45,7 +50,13 @@ class VQEmbedding(nn.Module):
         Draws two ``uniform``s: the restart jitter and the order in which
         input vectors (real frames first) are taken as restart codes."""
         d_embed = self.embedding.shape[1]
-        flat = vectors.reshape(-1, d_embed)
+        per_row = vectors.shape[1] if vectors.ndim > 2 else 1
+        parts = gather_rows([vectors.reshape(-1, d_embed), idxs.reshape(-1)]
+                            + ([] if mask is None else [mask.reshape(-1)]),
+                            per_row)
+        flat, idxs = parts[:2]
+        if mask is not None:
+            mask = parts[2]
         n_vectors = flat.shape[0]
         w = torch.ones((n_vectors, 1), dtype=flat.dtype, device=flat.device) \
             if mask is None else mask.reshape(-1, 1).to(flat.dtype)
@@ -115,10 +126,11 @@ class RQBottleneck(nn.Module):
             quants.append(aggregated)
             codes.append(code)
         if nonpadding is None:
-            commit = torch.stack([((x - q) ** 2).mean() for q in quants])
+            commit = torch.stack([global_mean((x - q) ** 2) for q in quants])
         else:
             m = nonpadding[..., None]
-            denom = torch.clamp_min(m.sum() * x.shape[-1], 1.0)
+            denom = torch.clamp_min(
+                global_sum(m.sum(), "ref_frames") * x.shape[-1], 1.0)
             commit = torch.stack([(((x - q) ** 2) * m).sum() / denom
                                   for q in quants])
         # x + (q - x): the straight-through form, rounded as the JAX one

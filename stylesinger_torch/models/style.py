@@ -12,9 +12,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stylesinger_torch.models.common import (
-    ConvBlocks, LayerNorm, MultiheadCrossAttention, WN, dropout,
+    ConvBlocks, Dense, LayerNorm, MultiheadCrossAttention, WN, dropout,
 )
 from stylesinger_torch.models.rq import RQBottleneck
+from stylesinger_torch.parallel.mesh import global_sum
 
 
 def guided_attention_mask(tq: int, q_len: torch.Tensor, tk: int,
@@ -52,8 +53,8 @@ class CrossAttenLayer(nn.Module):
         self.mha = MultiheadCrossAttention(hidden, num_heads,
                                            dropout=dropout)
         self.norm1 = LayerNorm(hidden)
-        self.linear1 = nn.Linear(hidden, ffn_dim)
-        self.linear2 = nn.Linear(ffn_dim, hidden)
+        self.linear1 = Dense(hidden, ffn_dim)
+        self.linear2 = Dense(ffn_dim, hidden)
         self.norm2 = LayerNorm(hidden)
 
     def forward(self, src: torch.Tensor, style: torch.Tensor,
@@ -102,7 +103,7 @@ class ProsodyAligner(nn.Module):
                 output, style, style_nonpadding, forcing, drop)
             attns.append(attn)
             loss = loss + (attn * guided * pair).sum() / torch.clamp_min(
-                pair.sum(), 1.0)
+                global_sum(pair.sum(), "aligned_pairs"), 1.0)
         return output, loss, torch.stack(attns, dim=1)
 
 
@@ -126,10 +127,11 @@ class LocalStyleAdaptor(nn.Module):
                 use_rq: bool = True, noise=None, drop=None):
         """ref_mels [B, T, M], ref_f0 [B, T] -> (style [B, T, H], the
         commitment loss, codes), or (style, None, None) without RQ.
-        ``noise`` (training) updates the codebooks."""
+        ``noise`` (training) updates the codebooks.  The style enters the
+        RQ bottleneck in f32 (it is in the compute dtype without it)."""
         nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(torch.float32)
         h = self.wavenet(ref_mels, nonpadding) + ref_f0[..., None]
         style = self.encoder(h, nonpadding, drop)
         if not use_rq:
             return style, None, None
-        return self.rq(style, noise, nonpadding)
+        return self.rq(style.float(), noise, nonpadding)

@@ -21,11 +21,14 @@ ground-truth ``mel2ph``, f0 and uv, returning the training outputs and the
 model-side losses (``diff_loss``, ``gdiff*``/``mdiff*``, ``gloss``,
 ``rq_loss``).  Its randomness comes from one noise source per JAX stream
 (``dropout``, ``umln``, ``rq``, ``diffusion``); ``deterministic=True``
-(validation) turns dropout, UMLN and the codebook update off.  ProDiff's
-training loss is not ported and raises.
+(validation) turns dropout, UMLN and the codebook update off.  ProDiff
+trains by predicting the ground-truth mel from its diffused copy at a drawn
+t (its mel losses are the caller's).
 
-``use_spk_id``, ``rel_pos`` and a ``pitch_type`` other than ``frame`` are
-not ported and raise.
+``use_spk_id`` swaps the d-vector projection for an ``Embedding(num_spk +
+1)`` of integer speaker ids, passed as ``spk_embed``; ``rel_pos`` gives the
+phone encoder ESPnet's relative positions; a ``pitch_type`` other than
+``frame`` turns uv off.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch.nn as nn
 from stylesinger_torch.dsp.pitch import denorm_f0, f0_to_coarse
 from stylesinger_torch.models import diffusion as diff
 from stylesinger_torch.models.common import (
-    DurationPredictor, Embedding, FastspeechDecoder, FastspeechEncoder,
+    Dense, DurationPredictor, Embedding, FastspeechDecoder, FastspeechEncoder,
     PitchPredictor, SinusoidalPositionalEmbedding,
 )
 from stylesinger_torch.models.diffnet import DDiffNet, DiffNet, FFTDenoiser
@@ -80,7 +83,7 @@ class NoteEncoder(nn.Module):
         self.scale = math.sqrt(hidden)
         self.emb = Embedding(n_vocab, hidden)
         self.type_emb = Embedding(n_types, hidden)
-        self.dur_ln = nn.Linear(1, hidden)
+        self.dur_ln = Dense(1, hidden)
 
     def forward(self, note, note_dur, note_type):
         return (self.emb(note) * self.scale +
@@ -94,9 +97,6 @@ def _check_supported(c: Any) -> None:
         "decoder": c["decoder"] not in ("diffsinger", "fft", "prodiff"),
         "diff_decoder_type": c.get("diff_decoder_type", "wavenet")
         not in ("wavenet", "fft"),
-        "use_spk_id": bool(c.get("use_spk_id", False)),
-        "rel_pos": bool(c.get("rel_pos", False)),
-        "pitch_type": c["pitch_type"] != "frame",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -114,12 +114,18 @@ class StyleSinger(nn.Module):
         self.encoder = FastspeechEncoder(vocab_size, h, c["enc_layers"],
                                          c["enc_ffn_kernel_size"],
                                          num_heads=c["num_heads"],
-                                         dropout=c["dropout"])
+                                         dropout=c["dropout"],
+                                         rel_pos=bool(c.get("rel_pos",
+                                                            False)))
         self.note_encoder = NoteEncoder(h, c["note_vocab"],
                                         c["note_type_vocab"])
-        self.spk_embed_proj = nn.Linear(DVEC_DIM, h)
+        self.use_spk_id = bool(c.get("use_spk_id", False))
+        if self.use_spk_id:
+            self.spk_embed_proj = Embedding(c["num_spk"] + 1, h)
+        else:
+            self.spk_embed_proj = Dense(DVEC_DIM, h)
         if c["emo"]:
-            self.emo_embed_proj = nn.Linear(DVEC_DIM, h)
+            self.emo_embed_proj = Dense(DVEC_DIM, h)
         if c["umln"]:
             self.norm = UMLN(h)
         if c["style"]:
@@ -130,7 +136,7 @@ class StyleSinger(nn.Module):
                                            (1, 1, 1, 1, 1))),
                 rq_decay=c["rq_decay"], vae_dropout=c["vae_dropout"])
             self.style_pos = SinusoidalPositionalEmbedding(h)
-            self.l1 = nn.Linear(2 * h, h)
+            self.l1 = Dense(2 * h, h)
             self.align = ProsodyAligner(
                 h, num_layers=c["aligner_layers"], num_heads=c["num_heads"],
                 ffn_dim=c["aligner_ffn_dim"], guided_sigma=c["guided_sigma"])
@@ -159,7 +165,7 @@ class StyleSinger(nn.Module):
                                              c["dec_ffn_kernel_size"],
                                              num_heads=c["num_heads"],
                                              dropout=c["dropout"])
-            self.mel_out = nn.Linear(h, m)
+            self.mel_out = Dense(h, m)
         if c["decoder"] in ("diffsinger", "prodiff"):
             if c.get("diff_decoder_type", "wavenet") == "fft":
                 self.postdiff = FFTDenoiser(
@@ -179,7 +185,7 @@ class StyleSinger(nn.Module):
                 c["timesteps"], c["max_beta"], c["schedule_type"])
             n_cond = (m + (h if c["use_txt_cond"] else 0) + h +
                       (h if c["emo"] else 0) + (h if c["style"] else 0))
-            self.ln_proj = nn.Linear(n_cond, h)
+            self.ln_proj = Dense(n_cond, h)
         elif c["decoder"] == "prodiff":
             self.mel_sched = diff.make_prodiff_schedule(
                 c["timesteps"], c.get("prodiff_schedule", "vpsde"))
@@ -239,10 +245,11 @@ class StyleSinger(nn.Module):
                                                     drop)
         pitch_pred = p_spec / 2 + p_agn / 2
         ret["pitch_pred"] = pitch_pred
+        use_uv = c["pitch_type"] == "frame" and c["use_uv"]
         if infer:
             f0 = pitch_pred[:, :, 0]
             uv = (pitch_pred[:, :, 1] > 0).to(torch.float32)
-        f0_denorm = denorm_f0(f0, uv if c["use_uv"] else None,
+        f0_denorm = denorm_f0(f0, uv if use_uv else None,
                               pitch_norm=c["pitch_norm"],
                               f0_mean=c["f0_mean"], f0_std=c["f0_std"],
                               pitch_padding=mel2ph == 0)
@@ -300,9 +307,6 @@ class StyleSinger(nn.Module):
         off), ``umln``, ``rq`` and ``diffusion``; with ``deterministic``
         only ``diffusion`` is read.  Returns, besides, style, decoder_inp
         and the model-side losses of the phase."""
-        if not infer and self.cfg["decoder"] == "prodiff":
-            raise NotImplementedError(
-                "stylesinger_torch does not port ProDiff's training loss")
         with torch.set_grad_enabled(torch.is_grad_enabled() and not infer):
             return self._forward(
                 txt_tokens, spk_embed, emo_embed, ref_mels, ref_f0, note,
@@ -321,7 +325,11 @@ class StyleSinger(nn.Module):
         encoder_out = self.encoder(txt_tokens, drop) + self.note_encoder(
             note, note_dur, note_type)
         src_nonpadding = (txt_tokens > 0).to(torch.float32)
-        spk = self.spk_embed_proj(spk_embed)[:, None, :]
+        if self.use_spk_id and spk_embed.dim() != 1:
+            raise ValueError("use_spk_id: spk_embed must be the speaker ids "
+                             f"[B], not {tuple(spk_embed.shape)}")
+        spk = self.spk_embed_proj(spk_embed.long() if self.use_spk_id
+                                  else spk_embed)[:, None, :]
         emo = self.emo_embed_proj(emo_embed)[:, None, :] if c["emo"] else 0.0
 
         dur_inp = grad_scale((encoder_out + spk + emo) *
@@ -355,8 +363,9 @@ class StyleSinger(nn.Module):
         decoder_inp = decoder_inp * tgt3
         ret["decoder_inp"] = decoder_inp
         if c["decoder"] == "prodiff":
-            ret["mel_out"] = self.run_prodiff(decoder_inp,
-                                              noise["diffusion"]) * tgt3
+            ret["mel_out"] = self.run_prodiff(
+                decoder_inp, noise["diffusion"],
+                ref_mels=None if infer else ref_mels, drop=drop) * tgt3
             return ret
         coarse = self.mel_out(self.decoder(decoder_inp, tgt, drop)) * tgt3
         ret["mel_out"] = coarse
@@ -409,12 +418,22 @@ class StyleSinger(nn.Module):
                                     noise, c["K_step"])
         return diff.denorm_spec(x, self.spec_min, self.spec_max)
 
-    def run_prodiff(self, decoder_inp, noise):
-        """ProDiff in place of the FFT decoder: x0-parameterized diffusion
-        from noise, conditioned on ``decoder_inp``."""
+    def run_prodiff(self, decoder_inp, noise, ref_mels=None, drop=None):
+        """ProDiff in place of the FFT decoder, conditioned on
+        ``decoder_inp``: x0-parameterized diffusion from noise, or, given
+        the ground-truth ``ref_mels`` (training), the x0 predicted from
+        them diffused to a drawn t."""
         c = self.cfg
+        if isinstance(self.postdiff, FFTDenoiser):
+            def denoise_fn(x_t, t_):
+                return self.postdiff(x_t, t_, decoder_inp, drop)
+        else:
+            def denoise_fn(x_t, t_):
+                return self.postdiff(x_t, t_, decoder_inp)
+        if ref_mels is not None:
+            return diff.prodiff_train(denoise_fn, self.mel_sched,
+                                      c["timesteps"], ref_mels, noise)
         shape = (decoder_inp.shape[0], decoder_inp.shape[1],
                  c["audio_num_mel_bins"])
-        return diff.sample_prodiff(
-            lambda x_t, t_: self.postdiff(x_t, t_, decoder_inp),
-            self.mel_sched, c["timesteps"], shape, noise)
+        return diff.sample_prodiff(denoise_fn, self.mel_sched,
+                                   c["timesteps"], shape, noise)

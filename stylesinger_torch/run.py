@@ -8,9 +8,11 @@ stylesinger_tpu.run``.
     python -m stylesinger_torch.run binarize [--recipe stylesinger] \\
         [--hparams 'processed_data_dir=...,binary_data_dir=...'] \\
         [--device cuda]
-    python -m stylesinger_torch.run train [--recipe stylesinger] \\
+    python -m stylesinger_torch.run train [--config egs/stylesinger.yaml] \\
         [--hparams 'binary_data_dir=data/binary/style,max_updates=1000'] \\
         [--exp_name stylesinger] [--work_dir_root checkpoints] [--device cuda]
+    torchrun --nproc_per_node N -m stylesinger_torch.run train \\
+        --config egs/stylesinger.yaml [...]
     python -m stylesinger_torch.run infer --ref_audio ref.wav \\
         [--exp_name stylesinger] [--work_dir_root checkpoints] \\
         [--allow_random] [--recipe stylesinger] \\
@@ -18,9 +20,11 @@ stylesinger_tpu.run``.
     python -m stylesinger_torch.run test [--exp_name stylesinger] \\
         [--hparams 'binary_data_dir=data/binary/style,test_ids=[0,2]']
 
-The config is the defaults, the recipe ``--recipe`` of ``egs/`` (``RECIPES``
-in ``config.py``) and the ``--hparams`` overrides, in that order; its
-``work_dir`` is ``<work_dir_root>/<exp_name>``.
+The config is the defaults, the YAML recipe file ``--config`` with its
+``base_config`` chain (``--recipe NAME`` is ``--config egs/NAME.yaml``),
+and the ``--hparams`` overrides (dotted keys reach nested maps), in that
+order; its ``work_dir`` is
+``<work_dir_root>/<exp_name>``.
 
 ``preprocess`` turns a raw corpus into ``<processed_data_dir>/
 metadata.json`` and ``phone_set.json``: its rows come from the meta adapter
@@ -39,9 +43,13 @@ encoders run on ``--device``.
 
 ``train`` trains the acoustic model on the binarized corpus in
 ``binary_data_dir`` (its ``phone_set.json`` and the train and valid
-shards) into the work dir, where it writes ``config.json``,
+shards) into the work dir, where it writes ``config.yaml``,
 ``metrics.jsonl`` and the checkpoints, and from whose latest checkpoint it
-resumes.
+resumes.  Started by ``torchrun`` (its ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``), it trains data
+parallel, one process per GPU (``parallel/mesh.py``): each rank takes its
+share of each epoch's batches, a step is one step on the ranks' batches
+together, and rank 0 writes the work dir.
 
 ``infer`` sings the JAX package's example phrase (``inference.py::
 example_run``) in the style of the reference clip ``--ref_audio`` with the
@@ -116,16 +124,19 @@ def example_run(cfg, ref_audio: str, out_path: str = "infer_out/test.wav",
 
 def train(cfg, work_dir: str, device: str = "cuda"):
     """``run.py train``: the binarized corpus of ``cfg["binary_data_dir"]``
-    through :meth:`Trainer.fit`; returns the final train state."""
+    through :meth:`Trainer.fit`, data parallel under torchrun; returns the
+    final train state."""
+    from stylesinger_torch.config import save_config
     from stylesinger_torch.data.batching import BucketBatcher, EpochBatches
     from stylesinger_torch.data.dataset import StyleSingerDataset
     from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.parallel import mesh
     from stylesinger_torch.text import build_token_encoder
     from stylesinger_torch.training.trainer import Trainer
 
-    os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1, sort_keys=True)
+    mesh.init_distributed(device)
+    if mesh.rank() == 0:
+        save_config(cfg, work_dir)
     with open(os.path.join(cfg["binary_data_dir"], "phone_set.json")) as f:
         encoder = build_token_encoder(json.load(f))
     model = StyleSinger(cfg, len(encoder))
@@ -139,7 +150,9 @@ def train(cfg, work_dir: str, device: str = "cuda"):
                              max_sentences=cfg["max_valid_sentences"]
                              ).batches(0)
 
-    return trainer.fit(EpochBatches(train_ds, cfg), valid_batches)
+    return trainer.fit(EpochBatches(train_ds, cfg, rank=mesh.rank(),
+                                    world_size=mesh.world_size()),
+                       valid_batches)
 
 
 def test(cfg, work_dir: str, device: str = "cuda") -> str:
@@ -249,8 +262,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("command", choices=["train", "binarize", "infer",
                                         "test", "preprocess", "mfa-align"])
     ap.add_argument("--recipe", default=None,
-                    help="a recipe of egs/ (config.py RECIPES), e.g. "
-                    "stylesinger")
+                    help="NAME: --config egs/NAME.yaml, e.g. stylesinger")
+    ap.add_argument("--config", default=None,
+                    help="a YAML recipe file, e.g. egs/stylesinger.yaml "
+                    "(its base_config chain included)")
     ap.add_argument("--hparams", default="",
                     help="'a=1,b=2' overrides, as the JAX CLI takes them")
     ap.add_argument("--exp_name", default="stylesinger")
@@ -269,9 +284,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
 
-    from stylesinger_torch.config import load_config, parse_hparams
+    from stylesinger_torch.config import load_config
 
-    cfg = load_config(args.recipe, **parse_hparams(args.hparams))
+    cfg = load_config(args.config, args.hparams, recipe=args.recipe)
     work_dir = os.path.join(args.work_dir_root, args.exp_name)
     cfg["work_dir"] = work_dir
     if args.command == "preprocess":

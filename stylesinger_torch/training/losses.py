@@ -11,7 +11,12 @@
   curriculum flags;
 - :func:`multi_resolution_stft_loss`: the PWG vocoder's auxiliary loss.
 
-Every function maps (outputs, batch) to scalars; masks are explicit.
+Every function maps (outputs, batch) to scalars; masks are explicit.  In
+a data-parallel step (``parallel/mesh.py``) every denominator and batch mean
+is global: each rank's loss is its share of the loss of the global batch.
+The masks that denominators count are all the batch's own, so
+:func:`batch_sums` sums them up front, and the step sums them over the
+ranks in one collective.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from stylesinger_torch.dsp.align import mel2ph_to_dur
 from stylesinger_torch.dsp.mel import _hann_periodic
+from stylesinger_torch.parallel.mesh import global_mean, global_sum
 
 
 def _gaussian_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -85,7 +91,7 @@ def _nonzero_weights(target: torch.Tensor) -> torch.Tensor:
 def mel_losses(mel_out: torch.Tensor, target: torch.Tensor,
                loss_spec: str, postfix: str = "") -> Dict[str, torch.Tensor]:
     w = _nonzero_weights(target)
-    denom = torch.clamp_min(w.sum(), 1.0)
+    denom = torch.clamp_min(global_sum(w.sum(), "mel_weights"), 1.0)
     out = {}
     for name, lbd in parse_mel_loss(loss_spec).items():
         if name == "l1":
@@ -101,35 +107,47 @@ def mel_losses(mel_out: torch.Tensor, target: torch.Tensor,
     return out
 
 
+def _dur_gt(mel2ph: torch.Tensor, txt_tokens: torch.Tensor):
+    """(phone nonpadding, ground-truth phone durations), [B, T_txt]."""
+    nonpadding = (txt_tokens > 0).to(torch.float32)
+    return nonpadding, mel2ph_to_dur(mel2ph, txt_tokens.shape[1]).to(
+        torch.float32) * nonpadding
+
+
+def _word_sum(v: torch.Tensor, is_sil: torch.Tensor) -> torch.Tensor:
+    """Per-phone values [B, T_txt] summed per word (phones between
+    silences), [B, T_txt]."""
+    word_id = (torch.cumsum(is_sil, -1) * (1 - is_sil)).long()
+    return torch.zeros((v.shape[0], v.shape[1] + 1), dtype=v.dtype,
+                       device=v.device).scatter_add(1, word_id, v)[:, 1:]
+
+
+def _word_durs(mel2ph, txt_tokens, is_sil) -> tuple:
+    """(phone nonpadding, the ground-truth word durations)."""
+    nonpadding, dur_gt = _dur_gt(mel2ph, txt_tokens)
+    return nonpadding, _word_sum(dur_gt, is_sil)
+
+
 def duration_losses(log_dur_pred: torch.Tensor, mel2ph: torch.Tensor,
                     txt_tokens: torch.Tensor, cfg: Any,
                     is_sil: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
-    t_txt = txt_tokens.shape[1]
-    nonpadding = (txt_tokens > 0).to(torch.float32)
-    dur_gt = mel2ph_to_dur(mel2ph, t_txt).to(torch.float32) * nonpadding
+    nonpadding, dur_gt = _dur_gt(mel2ph, txt_tokens)
     out = {}
     pdur = (log_dur_pred - torch.log(dur_gt + 1.0)) ** 2
     out["pdur"] = (pdur * nonpadding).sum() / torch.clamp_min(
-        nonpadding.sum(), 1.0) * cfg["lambda_ph_dur"]
+        global_sum(nonpadding.sum(), "tokens"), 1.0) * cfg["lambda_ph_dur"]
 
     dur_pred = torch.clamp_min(torch.exp(log_dur_pred) - 1.0, 0.0)
     if cfg["lambda_word_dur"] > 0 and is_sil is not None:
-        word_id = (torch.cumsum(is_sil, -1) * (1 - is_sil)).long()
-
-        def seg_sum(v):
-            return torch.zeros((v.shape[0], t_txt + 1), dtype=v.dtype,
-                               device=v.device).scatter_add(
-                1, word_id, v)[:, 1:]
-
-        wp, wg = seg_sum(dur_pred), seg_sum(dur_gt)
+        wp, wg = _word_sum(dur_pred, is_sil), _word_sum(dur_gt, is_sil)
         wmask = (wg > 0).to(torch.float32)
         wdur = (torch.log(wp + 1) - torch.log(wg + 1)) ** 2
         out["wdur"] = (wdur * wmask).sum() / torch.clamp_min(
-            wmask.sum(), 1.0) * cfg["lambda_word_dur"]
+            global_sum(wmask.sum(), "words"), 1.0) * cfg["lambda_word_dur"]
     if cfg["lambda_sent_dur"] > 0:
         sp, sg = dur_pred.sum(-1), dur_gt.sum(-1)
-        out["sdur"] = torch.mean(
+        out["sdur"] = global_mean(
             (torch.log(sp + 1) - torch.log(sg + 1)) ** 2) * \
             cfg["lambda_sent_dur"]
     return out
@@ -144,14 +162,52 @@ def f0_uv_losses(pitch_pred: torch.Tensor, f0: torch.Tensor,
         bce = torch.clamp_min(logits, 0) - logits * uv + \
             torch.log1p(torch.exp(-logits.abs()))
         out[f"uv{postfix}"] = (bce * nonpadding).sum() / torch.clamp_min(
-            nonpadding.sum(), 1.0) * cfg["lambda_uv"]
+            global_sum(nonpadding.sum(), "frames"), 1.0) * cfg["lambda_uv"]
         nonpadding = nonpadding * (uv == 0).to(nonpadding.dtype)
+        key = "voiced"
+    else:
+        key = "frames"
     f0_pred = pitch_pred[:, :, 0]
     if cfg["pitch_loss"] in ("l1", "l2"):
         err = (f0_pred - f0).abs() if cfg["pitch_loss"] == "l1" else \
             (f0_pred - f0) ** 2
         out[f"f0{postfix}"] = (err * nonpadding).sum() / torch.clamp_min(
-            nonpadding.sum(), 1.0) * cfg["lambda_f0"]
+            global_sum(nonpadding.sum(), key), 1.0) * cfg["lambda_f0"]
+    return out
+
+
+def batch_sums(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The sums of the batch's masks that the training losses divide by,
+    by the ``key`` each passes to :func:`global_sum`.  The masks are zero
+    where a batch is padded.
+
+    - ``mel_weights``: the mel loss's weights (frames with a nonzero target,
+      over the mel bins);
+    - ``tokens``: phones (``txt_tokens > 0``): the phone duration loss;
+    - ``words``: words with a nonzero duration: the word duration loss;
+    - ``frames``: frames (``mel2ph > 0``): uv, f0 without uv, and the mel
+      diffusion's loss (over the mel bins);
+    - ``voiced``: frames with ``uv == 0``: f0 with uv, the f0 diffusion's
+      Gaussian loss;
+    - ``ref_frames``: the style reference's frames (the item's own mel,
+      ``|mel[:, :, 0]| > 1e-8``): the RQ commitment loss (over the
+      channels);
+    - ``aligned_pairs``: (frame, reference frame) pairs of each item: the
+      aligner's guided-attention loss."""
+    frames = (batch["mel2ph"] > 0).to(torch.float32)
+    ref = (batch["mels"][:, :, 0].abs() > 1e-8).to(torch.float32)
+    out = {
+        "mel_weights": _nonzero_weights(batch["mels"]).sum(),
+        "tokens": (batch["txt_tokens"] > 0).to(torch.float32).sum(),
+        "frames": frames.sum(),
+        "voiced": (frames * (batch["uv"] == 0).to(torch.float32)).sum(),
+        "ref_frames": ref.sum(),
+        "aligned_pairs": (frames.sum(-1) * ref.sum(-1)).sum(),
+    }
+    if batch.get("is_sil") is not None:
+        _, wg = _word_durs(batch["mel2ph"], batch["txt_tokens"],
+                           batch["is_sil"])
+        out["words"] = (wg > 0).to(torch.float32).sum()
     return out
 
 

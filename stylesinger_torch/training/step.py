@@ -11,7 +11,14 @@
   optax's definitions (:class:`Optimizer`);
 - randomness: one ``torch.Generator`` per JAX stream (``dropout``,
   ``umln``, ``rq``, ``diffusion``), each seeded from (seed, step, stream),
-  so a resumed run draws what an unbroken one draws.
+  so a resumed run draws what an unbroken one draws;
+- ``compute_dtype`` (``float32`` or ``bfloat16``) is the activation dtype
+  of the model's pass (``models/precision.py``); the outputs are cast to
+  f32 before the losses, as JAX's ``_f32_tree`` does;
+- under a process group (``parallel/mesh.py``) a step is one optimizer
+  step on the global batch: the batches are padded to a common bucket, the
+  draws, loss denominators, RQ statistics and UMLN batch std are the
+  global batch's, and the gradients and losses are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from stylesinger_torch.models import precision
 from stylesinger_torch.models.diffusion import Noise
-from stylesinger_torch.training.losses import compute_losses
+from stylesinger_torch.parallel import mesh
+from stylesinger_torch.training.losses import batch_sums, compute_losses
 from stylesinger_torch.training.schedules import make_schedule
 
 STREAMS = ("dropout", "umln", "rq", "diffusion")
@@ -79,13 +88,21 @@ def batch_to_device(batch: Dict, device: Union[str, torch.device]
 
 def model_inputs(batch: Dict) -> Dict:
     """A batch as ``StyleSinger.forward(infer=False)`` keywords: the item's
-    own mel and f0 are the style reference."""
+    own mel and f0 are the style reference; the speaker is its id where
+    the batch has one (``use_spk_id``), else its d-vector."""
     return dict(
         txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
-        spk_embed=batch["spk_embed"], emo_embed=batch.get("emo_embed"),
+        spk_embed=batch["spk_id"] if "spk_id" in batch
+        else batch["spk_embed"], emo_embed=batch.get("emo_embed"),
         ref_mels=batch["mels"], ref_f0=batch["f0"], f0=batch["f0"],
         uv=batch["uv"], note=batch["notes"], note_dur=batch["note_durs"],
         note_type=batch["note_types"])
+
+
+def f32_outputs(ret: Dict) -> Dict:
+    """bf16 outputs of the model cast to f32 before the losses."""
+    return {k: v.float() if isinstance(v, torch.Tensor)
+            and v.dtype == torch.bfloat16 else v for k, v in ret.items()}
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -253,26 +270,42 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                noise: Optional[Dict[str, Any]] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on a batch of tensors on the model's device
-    (:func:`batch_to_device`).  ``noise`` replaces the step's own sources
-    (:func:`step_noise`); a ``dropout`` entry of None turns dropout off.
-    Returns the losses, ``total_loss`` and ``grad_norm`` (detached)."""
+    (:func:`batch_to_device`); under a process group, on the global batch
+    of which ``batch`` is this rank's part.  ``noise`` replaces the step's
+    own sources (:func:`step_noise`; the global batch's draws); a
+    ``dropout`` entry of None turns dropout off.  Returns the losses,
+    ``total_loss`` and ``grad_norm`` (detached; global)."""
     model = state.model
     if noise is None:
         noise = step_noise(cfg["seed"], state.step, state.device)
-    ret = model(**model_inputs(batch), noise=noise, infer=False,
-                use_rq=phase.use_rq, forcing=phase.forcing,
-                use_diff=phase.use_diff)
-    losses = compute_losses(ret, batch, cfg, use_rq=phase.use_rq,
-                            forcing=phase.forcing, use_diff=phase.use_diff)
-    total = total_loss(losses)
+    shard = None
+    if mesh.distributed():
+        batch, shard = mesh.shard_batch(batch, batch_sums(batch))
+        noise = shard.noise(noise)
     params = list(model.parameters())
     for p in params:
         p.grad = None
-    total.backward()
+    with mesh.sharded(shard):
+        with precision.activation_dtype(cfg.get("compute_dtype",
+                                                "float32")):
+            ret = model(**model_inputs(batch), noise=noise, infer=False,
+                        use_rq=phase.use_rq, forcing=phase.forcing,
+                        use_diff=phase.use_diff)
+        losses = compute_losses(f32_outputs(ret), batch, cfg,
+                                use_rq=phase.use_rq, forcing=phase.forcing,
+                                use_diff=phase.use_diff)
+        total = total_loss(losses)
+        total.backward()
+    if shard is not None:
+        mesh.all_reduce_grads(params)
     grad_norm = state.opt.step(params, [p.grad for p in params])
     state.step += 1
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["total_loss"] = total.detach()
+    keys = sorted(losses)
+    values = torch.stack([losses[k].detach() for k in keys])
+    if shard is not None:
+        values = mesh.all_reduce_sum(values)
+    metrics = dict(zip(keys, values.unbind()))
+    metrics["total_loss"] = total_loss(metrics)
     metrics["grad_norm"] = grad_norm
     return metrics
 
@@ -286,10 +319,12 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
     update), with the step's diffusion draws."""
     if noise is None:
         noise = step_noise(cfg["seed"], state.step, state.device)
-    ret = state.model(**model_inputs(batch), noise=noise, infer=False,
-                      use_rq=phase.use_rq, forcing=phase.forcing,
-                      use_diff=phase.use_diff, deterministic=True)
-    losses = compute_losses(ret, batch, cfg, use_rq=phase.use_rq,
-                            forcing=phase.forcing, use_diff=phase.use_diff)
+    with precision.activation_dtype(cfg.get("compute_dtype", "float32")):
+        ret = state.model(**model_inputs(batch), noise=noise, infer=False,
+                          use_rq=phase.use_rq, forcing=phase.forcing,
+                          use_diff=phase.use_diff, deterministic=True)
+    losses = compute_losses(f32_outputs(ret), batch, cfg,
+                            use_rq=phase.use_rq, forcing=phase.forcing,
+                            use_diff=phase.use_diff)
     losses["total_loss"] = total_loss(losses)
     return losses

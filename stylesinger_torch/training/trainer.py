@@ -10,6 +10,11 @@ finishes the step it is in, saves a checkpoint and raises
 ``KeyboardInterrupt``: a step changes the model's codebook buffers and the
 optimizer's state in place, so a checkpoint is only taken between steps.
 
+Under a process group (``parallel/mesh.py``, one process per device) each
+step is one step on the global batch; rank 0 alone writes metrics and
+checkpoints and runs validation (on the whole valid split, as JAX's
+``BucketBatcher`` without a rank split gives it).
+
 The scan dispatcher, the host-RSS watchdog, ``profile_step`` and the
 validation image and audio dumps of the JAX trainer are not ported.
 """
@@ -28,6 +33,8 @@ import torch
 import torch.nn as nn
 
 from stylesinger_torch.inference import resolve_device
+from stylesinger_torch.models import precision
+from stylesinger_torch.parallel import mesh
 from stylesinger_torch.training.checkpoint import (
     CheckpointManager, latest_checkpoint, load_payload,
 )
@@ -72,34 +79,44 @@ def warm_start_params(model: nn.Module, load_path: str) -> List[str]:
 
 class MetricsWriter:
     """Rows of ``{"step", "prefix", <metric>: value}`` appended to
-    ``<work_dir>/metrics.jsonl``."""
+    ``<work_dir>/metrics.jsonl``; on ranks other than 0 it writes
+    nothing."""
 
     def __init__(self, work_dir: str):
-        os.makedirs(work_dir, exist_ok=True)
-        self._f = open(os.path.join(work_dir, "metrics.jsonl"), "a")
+        self._f = None
+        if mesh.rank() == 0:
+            os.makedirs(work_dir, exist_ok=True)
+            self._f = open(os.path.join(work_dir, "metrics.jsonl"), "a")
 
     def write(self, step: int, metrics: Dict[str, Any],
               prefix: str = "train") -> None:
+        if self._f is None:
+            return
         row = {"step": step, "prefix": prefix,
                **{k: float(v) for k, v in metrics.items()}}
         self._f.write(json.dumps(row) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class Trainer:
     """Drives :func:`train_step` for a model on ``device`` (``cuda`` unless
-    the caller asks for the CPU; raises when CUDA is asked for and
-    absent)."""
+    the caller asks for the CPU; raises when CUDA is asked for and absent;
+    ``cuda:LOCAL_RANK`` under a process group).  Raises on a
+    ``compute_dtype`` other than float32 / bfloat16 and on a
+    ``mesh_shape`` with a ``model`` axis."""
 
     def __init__(self, model: nn.Module, cfg: Any, work_dir: str,
                  device: Any = "cuda"):
         self.model = model
         self.cfg = cfg
         self.work_dir = work_dir
-        self.device = resolve_device(device)
+        self.device = mesh.local_device(resolve_device(device))
+        precision.parse(cfg.get("compute_dtype", "float32"))
+        mesh.check_mesh_shape(cfg.get("mesh_shape"))
         self.ckpt = CheckpointManager(
             work_dir, keep=cfg["num_ckpt_keep"], save_best=cfg["save_best"],
             milestone_interval=cfg.get("milestone_interval", 0))
@@ -148,13 +165,18 @@ class Trainer:
             if self._stop:
                 print(f"| KeyboardInterrupt: saving checkpoint at step "
                       f"{state.step}")
-                self.ckpt.save(state.step, state)
+                if mesh.rank() == 0:
+                    self.ckpt.save(state.step, state)
                 raise KeyboardInterrupt
             try:
                 batch = next(it)
             except StopIteration:
                 it = iter(train_batches)
-                batch = next(it)
+                batch = next(it, None)
+                if batch is None:
+                    raise ValueError(
+                        f"rank {mesh.rank()}: an epoch gives no batch (fewer "
+                        f"batches than the {mesh.world_size()} process(es))")
             phase = phase_for_step(state.step, self.cfg)
             m = train_step(state, batch_to_device(batch, self.device), phase,
                            self.cfg)
@@ -181,7 +203,7 @@ class Trainer:
             if not np.isfinite(logged.get("total_loss", 0.0)):
                 raise FloatingPointError(
                     f"non-finite loss at step {step}: {logged}")
-        if step % c["val_check_interval"] == 0:
+        if step % c["val_check_interval"] == 0 and mesh.rank() == 0:
             val_loss = None
             if valid_batches_fn is not None:
                 val_loss = self.validate(state, valid_batches_fn(), step,

@@ -8,8 +8,7 @@ import pytest
 from stylesinger_tpu.config import load_config as jax_load_config
 
 from stylesinger_torch.config import (
-    DEFAULTS, READ_WITH_GET, RECIPES, load_config,
-    parse_hparams,
+    DEFAULTS, READ_WITH_GET, load_config, parse_hparams, recipe_names,
 )
 
 
@@ -18,7 +17,7 @@ def _norm(value):
     return json.loads(json.dumps(value))
 
 
-@pytest.mark.parametrize("recipe", [None] + sorted(RECIPES))
+@pytest.mark.parametrize("recipe", [None] + recipe_names())
 def test_recipe_matches_jax_yaml_on_every_key_the_port_reads(recipe):
     jax_cfg = jax_load_config(None if recipe is None
                               else f"egs/{recipe}.yaml")

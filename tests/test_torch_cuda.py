@@ -188,20 +188,12 @@ class _CpuDraws:
         return self.noise.bernoulli(p, shape).to(self.device)
 
 
-@pytest.mark.cuda
-def test_tiny_train_step_on_the_card_matches_cpu(cuda):
-    """One train step of the tiny model (RQ, forcing off, mel diffusion):
-    the same weights and batch, the same draws (CPU generators, handed over
-    on the card), TF32 off.  Every loss and the grad norm within 1e-3
-    (relative, atol 1e-3); each gradient leaf within 1e-3 * max|g_leaf| +
-    1e-6 * max|g| (the second term: leaves that are zero in exact
-    arithmetic carry f32 rounding); the RQ buffers within 1e-5."""
+def _tiny_train_batch(cfg):
+    """The tiny model's 4-item batch (seeded) of the card-against-CPU train
+    step tests."""
     from stylesinger_torch.data.batching import collate_batch
     from stylesinger_torch.data.dataset import StyleSingerDataset
-    from stylesinger_torch.models.stylesinger import StyleSinger
-    from stylesinger_torch.training import step as ts
 
-    cfg = tiny_test_config()
     rng = np.random.default_rng(0)
     items = []
     for i in range(4):
@@ -218,8 +210,23 @@ def test_tiny_train_step_on_the_card_matches_cpu(cuda):
             "spk_embed": rng.standard_normal(256).astype(np.float32),
             "emo_embed": rng.standard_normal(256).astype(np.float32)})
     ds = StyleSingerDataset(cfg, "train", items=items)
-    batch = collate_batch([ds[i] for i in range(4)], cfg["frame_buckets"],
-                          cfg["token_buckets"])
+    return collate_batch([ds[i] for i in range(4)], cfg["frame_buckets"],
+                         cfg["token_buckets"])
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_cpu(cuda):
+    """One train step of the tiny model (RQ, forcing off, mel diffusion):
+    the same weights and batch, the same draws (CPU generators, handed over
+    on the card), TF32 off.  Every loss and the grad norm within 1e-3
+    (relative, atol 1e-3); each gradient leaf within 1e-3 * max|g_leaf| +
+    1e-6 * max|g| (the second term: leaves that are zero in exact
+    arithmetic carry f32 rounding); the RQ buffers within 1e-5."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cfg = tiny_test_config()
+    batch = _tiny_train_batch(cfg)
     phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
     cpu = ts.init_state(StyleSinger(cfg, 20), cfg)
     model = StyleSinger(cfg, 20)
@@ -249,6 +256,140 @@ def test_tiny_train_step_on_the_card_matches_cpu(cuda):
     for k, v in gpu.model.state_dict().items():
         if ".codebook_" in k:
             assert (v.cpu() - ref[k]).abs().max().item() <= 1e-5, k
+
+
+def _cpu_step(cfg):
+    """One train step of the tiny model on the CPU (seeded weights, batch
+    and draws).  Returns the state, the metrics, the batch and the
+    phase."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    batch = _tiny_train_batch(cfg)
+    phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
+    cpu = ts.init_state(StyleSinger(cfg, 20), cfg)
+    first = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    m_cpu = ts.train_step(cpu, ts.batch_to_device(batch, "cpu"), phase, cfg,
+                          noise={s: Noise(i, "cpu")
+                                 for i, s in enumerate(ts.STREAMS)})
+    return cpu, m_cpu, batch, phase, first
+
+
+def _card_and_cpu_steps(cuda, cfg, setup=None, card_dtypes=None):
+    """One train step of the tiny model on the CPU and on the card from the
+    same weights, batch and draws (CPU generators); ``setup()`` runs before
+    the card's step; ``card_dtypes`` (a dict) receives the output dtypes of
+    the card model's compute layers (``precision.compute_layer_dtypes``).
+    Returns both states and metrics."""
+    import contextlib
+
+    from stylesinger_torch.models import precision
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cpu, m_cpu, batch, phase, first = _cpu_step(cfg)
+    model = StyleSinger(cfg, 20)
+    model.load_state_dict(first)
+    gpu = ts.TrainState(model.to(cuda), ts.Optimizer(
+        dict(model.named_parameters()), cfg))
+    if setup is not None:
+        setup()
+    record = contextlib.nullcontext({}) if card_dtypes is None else \
+        precision.compute_layer_dtypes(gpu.model)
+    with record as seen:
+        m_gpu = ts.train_step(gpu, ts.batch_to_device(batch, cuda), phase,
+                              cfg, noise={s: _CpuDraws(Noise(i, "cpu"), cuda)
+                                          for i, s in enumerate(ts.STREAMS)})
+    if card_dtypes is not None:
+        card_dtypes.update(seen)
+    return cpu, gpu, m_cpu, m_gpu
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_train_step_on_the_card_matches_cpu(cuda):
+    """``compute_dtype: bfloat16``: the card's step (cuBLAS / cuDNN bf16,
+    f32 accumulation) against the CPU's bf16 step.  Both round each op to
+    bf16 at the same sites and accumulate in different orders (measured on
+    an H100: losses 1.2e-6 apart, gradients 3.1e-4 in relative L2): every
+    loss and the grad norm finite and within 1e-4 (relative, atol 1e-4);
+    all gradients within 1e-2 in relative L2 and at cosine similarity above
+    0.9999.  The card ran in bf16: every compute layer that ran returned
+    bf16 (the attention's ``qkv``, the FFN's ``Conv_0`` and WaveNet's
+    ``in_0`` among them), and its gradient is more than 0.4 % (relative L2)
+    from the CPU's f32 step's (1.2 % measured on the CPU); the parameters
+    stay f32."""
+    cfg = tiny_test_config(compute_dtype="bfloat16")
+    seen = {}
+    cpu, gpu, m_cpu, m_gpu = _card_and_cpu_steps(cuda, cfg,
+                                                 card_dtypes=seen)
+    assert set(m_gpu) == set(m_cpu)
+    for k, v in m_cpu.items():
+        assert math.isfinite(m_gpu[k].item()), k
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-4 * max(
+            1.0, abs(v.item())), k
+    for site in (".qkv", ".Conv_0", ".in_0"):
+        assert any(name.endswith(site) for name in seen), site
+    assert all(d == {torch.bfloat16} for d in seen.values()), seen
+    cpu32 = _cpu_step(tiny_test_config(compute_dtype="float32"))[0]
+    names = [k for k, p in cpu.model.named_parameters()
+             if p.grad is not None]
+
+    def flat(state):
+        params = dict(state.model.named_parameters())
+        return torch.cat([params[k].grad.reshape(-1).cpu() for k in names])
+
+    gc, gg, g32 = flat(cpu), flat(gpu), flat(cpu32)
+    assert torch.nn.functional.cosine_similarity(gc, gg, dim=0) > 0.9999
+    assert (gc - gg).norm() <= 1e-2 * gc.norm()
+    assert (gg - g32).norm() > 4e-3 * g32.norm()
+    assert all(p.dtype == torch.float32 for p in gpu.model.parameters())
+
+
+@pytest.mark.cuda
+def test_world_size_one_nccl_step_equals_the_plain_step(cuda):
+    """``init_distributed`` at world size 1 on NCCL: the step takes the
+    data-parallel path (padding, the global draws, denominators, RQ gather,
+    the gradient all-reduce) and equals the plain step on the CPU as the
+    card's plain step does (``test_tiny_train_step_on_the_card_matches_cpu``
+    's tolerances)."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from stylesinger_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = tiny_test_config()
+        cpu, gpu, m_cpu, m_gpu = _card_and_cpu_steps(
+            cuda, cfg, setup=lambda: mesh.init_distributed("cuda"))
+        assert dist.is_initialized() and dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-3 * max(1.0,
+                                                              abs(v.item()))
+    grads = {k: p.grad for k, p in cpu.model.named_parameters()}
+    g_max = max(g.abs().max().item() for g in grads.values()
+                if g is not None)
+    for k, p in gpu.model.named_parameters():
+        ref = torch.zeros_like(p.grad.cpu()) if grads[k] is None \
+            else grads[k]
+        tol = 1e-3 * ref.abs().max().item() + 1e-6 * g_max
+        assert (p.grad.cpu() - ref).abs().max().item() <= tol, k
 
 
 @pytest.mark.cuda

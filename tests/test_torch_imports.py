@@ -21,6 +21,12 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 assert callable(smoke.main)
+sys.path.insert(0, ".")
+for script in ("profile_train_step", "data_parallel_check"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert callable(module.main)
 blocked = [m for m in ("jax", "flax", "optax", "yaml", "stylesinger_tpu")
            if sys.modules.get(m) is not None]
 assert not blocked, blocked
@@ -66,7 +72,10 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.data.preprocess",
                      "stylesinger_torch.data.native_loader",
                      "stylesinger_torch.data.tsd_dataset",
-                     "stylesinger_torch.data.binarize"):
+                     "stylesinger_torch.data.binarize",
+                     "stylesinger_torch.models.precision",
+                     "stylesinger_torch.parallel.mesh",
+                     "stylesinger_torch.yaml_io"):
         assert expected in names
 
 
@@ -113,3 +122,24 @@ def test_build_directory_is_git_ignored():
                (REPO / ".gitignore").read_text().splitlines()]
     rel = _build.BUILD_DIR.relative_to(REPO).as_posix()
     assert f"{rel}/" in ignored or rel in ignored
+
+
+def test_recipe_file_reads_without_jax_flax_yaml_or_jax_package(tmp_path):
+    """``load_config`` of ``egs/stylesinger.yaml`` (its ``base_config``
+    chain) and ``save_config``, with the four names blocked."""
+    code = _IMPORT_ALL.split("import stylesinger_torch")[0] + r"""
+from stylesinger_torch.config import load_config, load_work_dir_config, \
+    save_config
+import sys
+cfg = load_config("egs/stylesinger.yaml", "mesh_shape.data=2")
+save_config(cfg, sys.argv[1])
+assert load_work_dir_config(sys.argv[1]) == cfg
+print(cfg["hidden_size"], cfg["mesh_shape"]["data"], cfg["lr"])
+assert not [m for m in ("jax", "flax", "optax", "yaml", "stylesinger_tpu")
+            if sys.modules.get(m) is not None]
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "work")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.split() == ["256", "2", "2.0"]

@@ -216,9 +216,40 @@ def test_grad_scale_matches_jax():
 
 
 def test_prodiff_training_raises():
+    """ProDiff's training pass, which the port used to refuse, runs: its
+    diffusion draws are t, then the noise, and it returns the x0 it
+    predicts (``tests/test_torch_settings.py`` holds the step to JAX's).
+    A decoder the port lacks still raises."""
     from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.models.diffusion import Noise
     from stylesinger_torch.models.stylesinger import StyleSinger
 
-    model = StyleSinger(tiny_test_config(decoder="prodiff"), 20)
-    with pytest.raises(NotImplementedError, match="ProDiff"):
-        model(*([None] * 8), noise={}, infer=False)
+    cfg = tiny_test_config(decoder="prodiff")
+    model = StyleSinger(cfg, 20)
+    b, t, tt = 2, 16, 4
+    mel2ph = torch.repeat_interleave(torch.arange(1, tt + 1), 4)[None]
+    kinds = []
+
+    class Recording(Noise):
+        def randint(self, shape, low, high):
+            kinds.append(("i", tuple(shape), low, high))
+            return super().randint(shape, low, high)
+
+        def normal(self, shape):
+            kinds.append(("n", tuple(shape)))
+            return super().normal(shape)
+
+    ret = model(torch.randint(1, 20, (b, tt)), torch.randn(b, 256),
+                torch.randn(b, 256), torch.randn(b, t, 16) - 2,
+                torch.zeros(b, t), torch.randint(40, 80, (b, tt)),
+                torch.rand(b, tt), torch.ones(b, tt, dtype=torch.long),
+                noise={"dropout": None, "umln": Noise(0, "cpu"),
+                       "rq": Noise(1, "cpu"), "diffusion": Recording(2, "cpu")},
+                infer=False, mel2ph=mel2ph.expand(b, -1),
+                f0=torch.zeros(b, t), uv=torch.zeros(b, t))
+    assert ret["mel_out"].shape == (b, t, 16)
+    assert torch.isfinite(ret["mel_out"]).all()
+    assert kinds[-2:] == [("i", (b,), 0, cfg["timesteps"] + 1),
+                          ("n", (b, t, 16))]
+    with pytest.raises(NotImplementedError):
+        StyleSinger(tiny_test_config(decoder="wavenet"), 20)

@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from stylesinger_torch.config import load_config, tiny_test_config
+from stylesinger_torch.config import (
+    load_config, load_work_dir_config, tiny_test_config,
+)
 from stylesinger_torch.data.batching import (
     BucketBatcher, EpochBatches, batch_by_size, collate_batch,
 )
@@ -270,5 +272,6 @@ def test_run_train_on_a_tiny_corpus_leaves_a_checkpoint(tmp_path):
     work = tmp_path / "ckpts" / "tiny"
     assert (work / "ckpt" / "model_ckpt_steps_2.pt").exists()
     assert (work / "ckpt_best" / "best_val.json").exists()
-    assert json.loads((work / "config.json").read_text())["max_updates"] == 2
+    assert (work / "config.yaml").exists()
+    assert load_work_dir_config(str(work))["max_updates"] == 2
     assert "trained to step 2" in out.stdout
