@@ -150,7 +150,27 @@ Phases, each printed on its own line with its elapsed seconds:
    egs/stylesinger.yaml`` (the port's own YAML reader) in its own process
    for 2 steps of a small curriculum on those shards, its ``config.yaml``
    read back equal to the config it trained with;
-8. device time per call of each kernel and its twin at the shapes of
+9. the model families the main path does not run, f32 with TF32
+   off, each after a tiny card-against-CPU check (same weights, inputs and
+   noise or dropout draws; within 1e-4 of max(1, max|y|), gradient leaves
+   within 1e-3 * max|g_leaf| + 1e-6 * max|g|), each launching neither
+   kernel:
+   - ``fs2``: ``FastSpeech2`` at ``load_config()``'s width (hidden 256,
+     4 + 4 layers, d-vectors): one inference pass and 3 train steps
+     (``training/fs2_task.py``) on 8 x 1024 frames x 128 phones;
+   - ``pe``: the ``PitchExtractor`` at its defaults, 3 steps on those mels;
+   - ``legacy vocoders``: the ``PWG`` (30 layers, 3 stacks, 64 / 128 / 64
+     channels, scales 4·4·4·4) and ``MelGAN`` (512 base channels, 8·8·2·2)
+     wrappers' ``spec2wav`` of the reference clip's mel, and ``PQMF``
+     analysis then synthesis of the clip;
+   - ``diffnet variants``: ``F0DiffNet`` / ``MDiffNet`` at 10 x 192, one
+     forward over 1024 frames;
+   - ``convert cli``: ``python -m stylesinger_torch.convert`` in its own
+     process on a reference-layout ``.ckpt`` of a seeded tiny model
+     (``tests/reference_layout.py``), ``load_params`` of the work dir it
+     writes (within 1e-6 of the seeded weights) and one request on the
+     card;
+10. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
@@ -192,7 +212,8 @@ MRF_BF16_ULPS = 2        # bf16 ulps of max|y|: an f32 sum in another order
                          # can land across a bf16 rounding
 MIN_BF16_SPREAD = 4e-3   # a bf16 step's gradient off the f32 step's
                          # (relative L2; 1.2 % on the CPU at the tiny size)
-BF16_SITES = (".qkv", ".Conv_0", ".in_0")  # compute layers that must run
+# compute layers that must run in bf16 in a bf16 step
+BF16_SITES = (".qkv", ".Conv_0", ".in_0", ".res_0.ln_0")
 
 # the phrase and notes of the JAX package's example_run
 EXAMPLE = dict(
@@ -2632,6 +2653,373 @@ def phase_data_prep(t0, torch, np, root: Path):
     return cli_binary
 
 
+# ---------------------------------------------------------------------------
+# 9. the other model families and the convert CLI
+# ---------------------------------------------------------------------------
+
+FAMILY_TOL = 1e-4   # card against CPU, of max(1, max|ref|): f32, TF32 off
+
+
+def _rel_err(a, b) -> float:
+    """max|a - b| over max(1, max|b|), on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def fs2_batch(torch, np, cfg, n, frames, phones, device, seed=SEED):
+    """A seeded FastSpeech2 / PitchExtractor batch on ``device``: phones of
+    ``frames // phones`` frames each, the last phone and its frames of
+    every second item padding, normalized log-f0, uv, energy, d-vectors
+    and mels."""
+    rng = np.random.default_rng(seed)
+    m = cfg["audio_num_mel_bins"]
+    txt = rng.integers(1, 60, (n, phones))
+    txt[1::2, -1] = 0
+    mel2ph = np.repeat(np.arange(1, phones + 1),
+                       frames // phones)[None].repeat(n, 0)
+    mel2ph[1::2][mel2ph[1::2] == phones] = 0
+    frame = (mel2ph > 0).astype(np.float32)
+    out = dict(
+        txt_tokens=txt, mel2ph=mel2ph,
+        spk_embed=rng.standard_normal((n, 256)).astype(np.float32),
+        f0=rng.uniform(7.0, 8.5, (n, frames)).astype(np.float32),
+        uv=(rng.uniform(size=(n, frames)) < 0.3).astype(np.float32) * frame,
+        energy=rng.uniform(0.0, 3.99, (n, frames)).astype(np.float32),
+        mels=((rng.standard_normal((n, frames, m)) * 0.5 - 3) *
+              frame[..., None]).astype(np.float32),
+        is_sil=(rng.uniform(size=(n, phones)) < 0.1).astype(np.float32))
+    return {k: torch.as_tensor(v).to(device) for k, v in out.items()}
+
+
+def family_step_pair(torch, np, cfg, build, make_step, batch):
+    """One step of a tiny model (``build()``) on the CPU and on the card
+    from the same weights and batch, the dropout drawn on the CPU and
+    replayed on the card: (worst loss error, worst gradient leaf error
+    over its tolerance, that leaf, the losses)."""
+    from stylesinger_torch.training import fs2_task
+    from stylesinger_torch.training.step import Optimizer, TrainState
+
+    cpu = fs2_task.init_fs2_state(build(), cfg, seed=SEED)
+    first = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    rec = _Recorder(SEED)
+    m_cpu = make_step(cfg)(cpu, batch, drop=rec)
+    model = build()
+    model.load_state_dict(first)
+    gpu = TrainState(model.cuda(), Optimizer(dict(model.named_parameters()),
+                                             cfg))
+    m_gpu = make_step(cfg)(
+        gpu, {k: v.cuda() for k, v in batch.items()},
+        drop=_Replay(rec.draws, "cuda"))
+    torch.cuda.synchronize()
+    errs = [abs(float(m_gpu[k]) - float(v)) / max(1.0, abs(float(v)))
+            for k, v in m_cpu.items()]
+    worst, name = grad_err_over_tol(cpu, gpu)
+    return max(errs), worst, name, m_cpu
+
+
+def timed_steps(torch, step, state, batch, n):
+    """``n`` steps, each timed on the host clock between synchronizes: ms
+    per step and the last step's losses."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - tb))
+    return ms, m
+
+
+def _reset_counts():
+    for ctr in counters().values():
+        ctr.reset()
+
+
+def _no_kernel(phase):
+    launches = {k: c.count for k, c in counters().items()}
+    require(not any(launches.values()),
+            f"{phase}: a kernel of the path was launched {launches}")
+    return sum(launches.values())
+
+
+def phase_fs2(t0, torch, np, smi):
+    """FastSpeech2: the tiny model's inference pass and one train step on
+    the card against the CPU; then at ``load_config()``'s width one
+    inference pass (predicted durations, up to ``max_frames``) and 3
+    train steps on 8 x 1024 frames x 128 phones."""
+    from stylesinger_torch.config import load_config, tiny_test_config
+    from stylesinger_torch.inference import init_random_
+    from stylesinger_torch.models.fs2 import FastSpeech2
+    from stylesinger_torch.training import fs2_task
+
+    tiny = tiny_test_config(use_energy_embed=True)
+    batch = fs2_batch(torch, np, tiny, 2, 32, 8, "cpu")
+
+    def build():
+        return FastSpeech2(tiny, 60, out_dims=tiny["audio_num_mel_bins"])
+
+    cpu = build()
+    init_random_(cpu, torch.Generator().manual_seed(SEED))
+    gpu = build()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    with torch.no_grad():
+        ref = cpu(batch["txt_tokens"], None, batch["spk_embed"], infer=True)
+        out = gpu(batch["txt_tokens"].cuda(), None,
+                  batch["spk_embed"].cuda(), infer=True)
+    infer_err = max(_rel_err(out[k], ref[k]) for k in
+                    ("mel_out", "dur", "f0_denorm", "energy_pred"))
+    same_mel2ph = bool(torch.equal(out["mel2ph"].cpu(), ref["mel2ph"]))
+    loss_err, worst, at, m = family_step_pair(
+        torch, np, tiny, build, fs2_task.make_fs2_train_step, batch)
+    say("fs2 small", t0, infer_err=f"{infer_err:.2e}", mel2ph_equal=
+        same_mel2ph, frames=int((ref["mel2ph"] > 0).sum()),
+        step_loss_err=f"{loss_err:.2e}", tol=f"{FAMILY_TOL:g}",
+        losses=len(m) - 1, worst_grad_err_over_tol=f"{worst:.3f}", at=at)
+    require(same_mel2ph and infer_err <= FAMILY_TOL,
+            f"fs2 small: card and CPU differ ({infer_err})")
+    require(loss_err <= FAMILY_TOL and worst <= 1.0,
+            f"fs2 small: train step differs ({loss_err}, {worst} at {at})")
+
+    cfg = load_config()
+    big = fs2_batch(torch, np, cfg, 8, 1024, 128, "cuda")
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = FastSpeech2(cfg, 60, out_dims=cfg["audio_num_mel_bins"]).cuda()
+    state = fs2_task.init_fs2_state(model, cfg, seed=SEED)
+    model.eval()
+    with torch.no_grad():
+        infer_ms = time_ms(torch, lambda: model(
+            big["txt_tokens"], None, big["spk_embed"], infer=True), iters=3)
+    model.train()
+    ms, m = timed_steps(torch, fs2_task.make_fs2_train_step(cfg),
+                        state, big, 3)
+    peak = torch.cuda.max_memory_allocated()
+    params = sum(p.numel() for p in model.parameters())
+    say("fs2", t0, gpu=repr(smi), params=params, batch="8x1024x128",
+        infer_ms=f"{infer_ms:.2f}", step_ms=",".join(f"{x:.1f}" for x in ms),
+        total_loss=f"{float(m['total_loss']):.4f}",
+        peak_gib=f"{peak / 2 ** 30:.2f}", launches=_no_kernel("fs2"))
+    require(all(math.isfinite(float(v)) for v in m.values()),
+            "fs2: a non-finite loss")
+
+
+def phase_pe(t0, torch, np, smi):
+    """PitchExtractor: one tiny train step on the card against the CPU,
+    then 3 steps at the default width (``predictor_layers`` 5) on the
+    ``fs2`` phase's mels."""
+    from stylesinger_torch.config import load_config, tiny_test_config
+    from stylesinger_torch.models.pe import PitchExtractor
+    from stylesinger_torch.training import fs2_task
+
+    tiny = tiny_test_config()
+    batch = fs2_batch(torch, np, tiny, 2, 32, 8, "cpu")
+    batch = {k: batch[k] for k in ("mels", "f0", "uv")}
+    loss_err, worst, at, m = family_step_pair(
+        torch, np, tiny, lambda: PitchExtractor(tiny),
+        fs2_task.make_pe_train_step, batch)
+    say("pe small", t0, step_loss_err=f"{loss_err:.2e}",
+        tol=f"{FAMILY_TOL:g}", worst_grad_err_over_tol=f"{worst:.3f}", at=at)
+    require(loss_err <= FAMILY_TOL and worst <= 1.0,
+            f"pe small: train step differs ({loss_err}, {worst} at {at})")
+
+    cfg = load_config()
+    big = fs2_batch(torch, np, cfg, 8, 1024, 128, "cuda")
+    big = {k: big[k] for k in ("mels", "f0", "uv")}
+    _reset_counts()
+    model = PitchExtractor(cfg).cuda()
+    state = fs2_task.init_fs2_state(model, cfg, seed=SEED)
+    ms, m = timed_steps(torch, fs2_task.make_pe_train_step(cfg),
+                        state, big, 3)
+    say("pe", t0, gpu=repr(smi), batch="8x1024x80",
+        layers=cfg["predictor_layers"],
+        step_ms=",".join(f"{x:.1f}" for x in ms),
+        total_loss=f"{float(m['total_loss']):.4f}",
+        launches=_no_kernel("pe"))
+    require(all(math.isfinite(float(v)) for v in m.values()),
+            "pe: a non-finite loss")
+
+
+def phase_legacy_vocoders(t0, torch, np, smi, wav_np):
+    """PWG, MelGAN and PQMF: tiny generators and the filter bank on the
+    card against the CPU (same weights and noise); then the wrappers at
+    their defaults (PWG 30 layers / 3 stacks / 64-128-64 channels, scales
+    4·4·4·4; MelGAN 512 base channels, 8·8·2·2) on the reference clip's
+    mel, and PQMF analysis then synthesis of the clip."""
+    from stylesinger_torch.config import load_config, tiny_test_config
+    from stylesinger_torch.dsp.mel import wav2spec
+    from stylesinger_torch.inference import init_random_
+    from stylesinger_torch.models import legacy_vocoders as lv
+    from stylesinger_torch.vocoder_infer import get_vocoder_cls
+
+    tiny = tiny_test_config(pwg_upsample_scales=[4, 4],
+                            melgan_upsample_scales=[4, 2])
+    g = torch.Generator().manual_seed(SEED)
+    mel = torch.randn((2, 12, tiny["audio_num_mel_bins"]), generator=g)
+    noise = torch.randn((2, 12 * 16, 1), generator=g)
+    pitch = torch.randint(1, 256, (2, 12), generator=g)
+    errs = {}
+    for name, build, args in (
+            ("pwg", lambda: lv.ParallelWaveGANGenerator(
+                tiny, layers=6, stacks=3, residual_channels=8,
+                gate_channels=16, skip_channels=8), (mel, noise)),
+            ("pwg_pitch", lambda: lv.ParallelWaveGANGenerator(
+                tiny, layers=6, stacks=3, residual_channels=8,
+                gate_channels=16, skip_channels=8, use_pitch_embed=True),
+             (mel, noise, pitch)),
+            ("melgan", lambda: lv.MelGANGenerator(tiny, base_channels=32),
+             (mel,))):
+        cpu = build()
+        init_random_(cpu, torch.Generator().manual_seed(SEED), conv_std=0.1)
+        gpu = build()
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            errs[name] = _rel_err(gpu.cuda()(*(a.cuda() for a in args)),
+                                  cpu(*args))
+    wav = torch.as_tensor(wav_np[:48000])[None]
+    pq = lv.PQMF()
+    pq_gpu = lv.PQMF().cuda()
+    errs["pqmf_analysis"] = _rel_err(pq_gpu.analysis(wav.cuda()),
+                                     pq.analysis(wav))
+    errs["pqmf_synthesis"] = _rel_err(
+        pq_gpu.synthesis(pq_gpu.analysis(wav.cuda())),
+        pq.synthesis(pq.analysis(wav)))
+    say("legacy vocoders small", t0, tol=f"{FAMILY_TOL:g}",
+        **{f"{k}_err": f"{v:.2e}" for k, v in errs.items()})
+    require(all(v <= FAMILY_TOL for v in errs.values()),
+            f"legacy vocoders small: card and CPU differ {errs}")
+
+    cfg = load_config()
+    clip_mel = wav2spec(wav_np, "cuda", sample_rate=cfg["audio_sample_rate"],
+                        n_fft=cfg["fft_size"], hop_size=cfg["hop_size"],
+                        win_length=cfg["win_size"],
+                        n_mels=cfg["audio_num_mel_bins"], fmin=cfg["fmin"],
+                        fmax=cfg["fmax"])["mel"].cpu().numpy()
+    frames = clip_mel.shape[0]
+    f0 = np.full(frames, 220.0, np.float32)
+    _reset_counts()
+    fields = {}
+    for name in ("PWG", "MelGAN"):
+        c = load_config()
+        c["vocoder"] = name
+        voc = get_vocoder_cls(c)(c, device="cuda", seed=SEED)
+        wav = voc.spec2wav(clip_mel, f0=f0)
+        require(wav.shape == (frames * cfg["hop_size"],) and
+                np.isfinite(wav).all(), f"{name}: wav {wav.shape}")
+        ms = time_ms(torch, lambda: voc.spec2wav(clip_mel, f0=f0), iters=3)
+        fields[f"{name.lower()}_ms"] = f"{ms:.2f}"
+        fields[f"{name.lower()}_params"] = sum(
+            p.numel() for p in voc.model.parameters())
+    clip = torch.as_tensor(wav_np, device="cuda")[None]
+    pq = lv.PQMF().cuda()
+    back = pq.synthesis(pq.analysis(clip))
+    n = clip.shape[1] // 4 * 4
+    recon = float((back[:, 1000:n - 1000] - clip[:, 1000:n - 1000]).abs()
+                  .max())
+    ms = time_ms(torch, lambda: pq.synthesis(pq.analysis(clip)), iters=5)
+    fields["pqmf_ms"] = f"{ms:.3f}"
+    say("legacy vocoders", t0, gpu=repr(smi), frames=frames,
+        samples=frames * cfg["hop_size"], pqmf_recon_err=f"{recon:.2e}",
+        launches=_no_kernel("legacy vocoders"), **fields)
+    require(recon < 0.05, f"PQMF does not reconstruct the clip ({recon})")
+
+
+def phase_diffnet_variants(t0, torch, np, smi):
+    """F0DiffNet and MDiffNet: tiny on the card against the CPU, then one
+    forward each at 10 layers x 192 channels over 1024 frames."""
+    from stylesinger_torch.inference import init_random_
+    from stylesinger_torch.models.diffnet import F0DiffNet, MDiffNet
+
+    def inputs(device, t, cond_dim, uv, seed=SEED):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randint(0, 2, (2, t), generator=g) if uv else \
+            torch.randn((2, t, 1), generator=g)
+        cond = torch.randn((2, t, cond_dim), generator=g)
+        mask = torch.ones((2, t))
+        mask[1, -t // 4:] = 0
+        return tuple(a.to(device) for a in (x, torch.tensor([3, 71]), cond,
+                                            mask))
+
+    errs, fields = {}, {}
+    for name, cls in (("f0diffnet", F0DiffNet), ("mdiffnet", MDiffNet)):
+        cpu = cls(cond_dim=12, residual_layers=3, residual_channels=8)
+        init_random_(cpu, torch.Generator().manual_seed(SEED), conv_std=0.2)
+        gpu = cls(cond_dim=12, residual_layers=3, residual_channels=8)
+        gpu.load_state_dict(cpu.state_dict())
+        uv = cls is MDiffNet
+        with torch.no_grad():
+            errs[name] = _rel_err(gpu.cuda()(*inputs("cuda", 24, 12, uv)),
+                                  cpu(*inputs("cpu", 24, 12, uv)))
+        big = cls(cond_dim=256, residual_layers=10,
+                  residual_channels=192).cuda()
+        init_random_(big, torch.Generator().manual_seed(SEED), conv_std=0.05)
+        args = inputs("cuda", 1024, 256, uv)
+        _reset_counts()
+        with torch.no_grad():
+            out = big(*args)
+            ms = time_ms(torch, lambda: big(*args), iters=10)
+            fields[f"{name}_ms"] = f"{ms:.3f}"
+        require(bool(torch.isfinite(out).all()), f"{name}: non-finite")
+        _no_kernel(name)
+    say("diffnet variants", t0, gpu=repr(smi), tol=f"{FAMILY_TOL:g}",
+        frames=1024, **{f"{k}_small_err": f"{v:.2e}" for k, v in errs.items()},
+        **fields)
+    require(all(v <= FAMILY_TOL for v in errs.values()),
+            f"diffnet variants: card and CPU differ {errs}")
+
+
+def phase_convert_cli(t0, torch, np, root: Path, wav_np):
+    """``python -m stylesinger_torch.convert`` on a reference-layout
+    ``.ckpt`` of a seeded tiny model (written by
+    ``tests/reference_layout.py``, which needs no JAX), in its own process;
+    ``load_params`` of the work dir it writes on the card, against the
+    seeded weights; one request on the card."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from reference_layout import flax_tree, reference_stylesinger_sd
+
+    from stylesinger_torch.config import save_config, tiny_test_config
+
+    cfg = tiny_test_config(hop_size=64, mrf_block=64)
+    phones = sorted(set(EXAMPLE["ph"].split()))
+    src = make_infer(cfg, phones, "cpu", SEED, frames=6)
+    ckpt = root / "reference" / "model_ckpt_steps_300.ckpt"
+    ckpt.parent.mkdir()
+    torch.save({"state_dict": {"model": reference_stylesinger_sd(
+        flax_tree(src.model))}, "global_step": 300}, str(ckpt))
+    cfg_path = save_config(cfg, str(root / "reference"))
+    work = root / "converted"
+    tc = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "stylesinger_torch.convert", str(ckpt),
+         str(work), "--config", cfg_path], cwd=str(REPO),
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - tc
+    require(out.returncode == 0,
+            f"convert cli: failed: {out.stderr[-2000:]}")
+    gpu = make_infer(cfg, phones, "cuda", SEED, frames=6)
+    with torch.no_grad():
+        for p in gpu.model.parameters():
+            p.zero_()
+    gpu.load_params(str(work))
+    ref = src.model.state_dict()
+    err = max(_rel_err(v, ref[k]) for k, v in gpu.model.state_dict().items())
+    _reset_counts()
+    wav = gpu.infer_once(dict(cut(EXAMPLE, 6), ref_audio=wav_np[:48000]))
+    launches = {k: c.count for k, c in counters().items()}
+    say("convert cli", t0, seconds=f"{seconds:.2f}",
+        wrote=(work / "ckpt" / "model_ckpt_steps_300.pt").exists(),
+        weight_err=f"{err:.2e}", tol="1e-6", wav_samples=len(wav),
+        mel_launches=launches["mel_spectrogram"],
+        mrf_launches=launches["fused_mrf_blocks"])
+    require(err <= 1e-6, f"convert cli: loaded weights differ ({err})")
+    require(len(wav) > 0 and np.isfinite(wav).all(),
+            "convert cli: the request gave no finite wav")
+    require(launches["mel_spectrogram"] == 1,
+            "convert cli: the request did not launch the mel kernel once")
+
+
 def mrf_against_plain_bf16(torch, np, cfg, item):
     """The trained generator (``vocoder_ckpt``, bf16) on ``item``'s mel
     and f0, on the card, twice: through the MRF kernel, recording each
@@ -2738,6 +3126,11 @@ def main() -> int:
             del train
             binary = phase_data_prep(t0, torch, np, root)
             phase_recipe_file(t0, torch, np, root, binary)
+            phase_fs2(t0, torch, np, smi)
+            phase_pe(t0, torch, np, smi)
+            phase_legacy_vocoders(t0, torch, np, smi, wav_np)
+            phase_diffnet_variants(t0, torch, np, smi)
+            phase_convert_cli(t0, torch, np, root, wav_np)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
     except Failure as e:

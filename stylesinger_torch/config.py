@@ -107,9 +107,13 @@ DEFAULTS: Dict[str, Any] = dict(
     predictor_kernel=5,    # the conv pitch predictors (f0_gen: conv)
     dur_predictor_kernel=3,
     dur_predictor_layers=2,
+    predictor_layers=5,    # FastSpeech2's and the PitchExtractor's predictors
     # --- pitch ---
     pitch_type="frame",
     pitch_norm="log",
+    cwt_std_scale=0.8,     # FastSpeech2, pitch_type cwt
+    use_pitch_embed=True,  # FastSpeech2
+    use_energy_embed=False,  # FastSpeech2
     use_uv=True,
     f0_mean=400.0,
     f0_std=100.0,
@@ -480,6 +484,7 @@ def tiny_test_config(**kwargs: Any) -> Config:
         num_heads=2,
         enc_ffn_kernel_size=3,
         dec_ffn_kernel_size=3,
+        predictor_layers=2,
         f0_residual_layers=1,
         f0_residual_channels=16,
         residual_layers=1,

@@ -24,14 +24,23 @@ A reference (AaronZ345/StyleSinger) checkpoint reaches the port through the
 JAX package's converters, copied here: :func:`load_torch_checkpoint` reads a
 ``model_ckpt_steps_N.ckpt``; :func:`convert_stylesinger` (the acoustic
 model), :func:`convert_hifigan` (the NSF HiFi-GAN, weight norm ``g * v /
-||v||`` folded) and :func:`convert_ge2e_encoder` (a GE2E d-vector encoder,
-:func:`load_ge2e_checkpoint`) build the flax tree of the JAX module from the
-torch ``state_dict``, and :func:`from_jax_params` maps that tree to the
-port module's ``state_dict``.
+||v||`` folded), :func:`convert_ge2e_encoder` (a GE2E d-vector encoder,
+:func:`load_ge2e_checkpoint`), :func:`convert_pwg` and
+:func:`convert_melgan` (the Parallel WaveGAN and MelGAN generators, read by
+:func:`load_pwg_checkpoint` / :func:`load_melgan_checkpoint` from an
+official ParallelWaveGAN checkpoint or a reference task checkpoint) build
+the flax tree of the JAX module from the torch ``state_dict``, and
+:func:`from_jax_params` maps that tree to the port module's
+``state_dict``.
+
+``python -m stylesinger_torch.convert <model.ckpt> <out_dir> [--config
+path] [--hifigan]`` writes a reference checkpoint in the port's own layout
+(:func:`main`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -480,3 +489,238 @@ def load_ge2e_checkpoint(path: str, map_location: Any = "cpu") -> Dict:
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return convert_ge2e_encoder(sd)
+
+
+# ---------------------------------------------------------------------------
+# Parallel WaveGAN and MelGAN (copy of stylesinger_tpu/convert.py:440-657)
+# ---------------------------------------------------------------------------
+
+def conv2d_time_wn(sd: Mapping, name: str) -> np.ndarray:
+    """PWG's upsample smoothing Conv2d(1, 1, (1, K)) (weight-normed or
+    folded) -> the time kernel [K, 1, 1]."""
+    if f"{name}.weight" in sd:
+        w = _np(sd[f"{name}.weight"])
+    else:
+        g = _np(sd[f"{name}.weight_g"])
+        v = _np(sd[f"{name}.weight_v"])
+        norm = np.sqrt((v ** 2).sum(axis=(1, 2, 3), keepdims=True))
+        w = g * v / np.maximum(norm, 1e-12)
+    return w[0, 0, 0][:, None, None]
+
+
+def convert_pwg(sd: Mapping, layers: int = 30, n_scales: int = 4) -> Dict:
+    """Reference ``ParallelWaveGANGenerator`` state_dict (weight-normed or
+    folded) -> the flax tree of the JAX ``ParallelWaveGANGenerator``."""
+    up: Dict[str, Any] = {"conv_in": conv1d_wn(sd, "upsample_net.conv_in")}
+    for i in range(n_scales):
+        # up_layers interleaves [Stretch2d, Conv2d]: the conv is at 2i+1
+        up[f"up_conv_{i}"] = conv2d_time_wn(
+            sd, f"upsample_net.upsample.up_layers.{2 * i + 1}")
+    params: Dict[str, Any] = {
+        "upsample_net": up,
+        "first": conv1d_wn(sd, "first_conv"),
+        "post1": conv1d_wn(sd, "last_conv_layers.1"),
+        "post2": conv1d_wn(sd, "last_conv_layers.3"),
+    }
+    if "pitch_embed.weight" in sd:
+        params["pitch_embed"] = emb(sd, "pitch_embed")
+        params["c_proj"] = lin(sd, "c_proj")
+    for i in range(layers):
+        p = f"conv_layers.{i}"
+        params[f"block_{i}"] = {
+            "conv": conv1d_wn(sd, f"{p}.conv"),
+            "aux": conv1d_wn(sd, f"{p}.conv1x1_aux"),
+            "res": conv1d_wn(sd, f"{p}.conv1x1_out"),
+            "skip": conv1d_wn(sd, f"{p}.conv1x1_skip"),
+        }
+    return {"params": params}
+
+
+def convert_melgan(sd: Mapping, n_scales: int = 4, stacks: int = 3) -> Dict:
+    """Reference ``MelGANGenerator`` state_dict (the non-causal
+    ``torch.nn.Sequential`` ``melgan``: [pad, conv_pre], per scale [leaky,
+    convT, stack x3], then [leaky, pad, conv_post, tanh]) -> the flax tree
+    of the JAX ``MelGANGenerator``."""
+    params: Dict[str, Any] = {"conv_pre": conv1d_wn(sd, "melgan.1")}
+    idx = 2
+    for i in range(n_scales):
+        params[f"up_{i}"] = convT1d_wn(sd, f"melgan.{idx + 1}")
+        for j in range(stacks):
+            p = f"melgan.{idx + 2 + j}"
+            params[f"res_{i}_{j}"] = {
+                # a stack: Sequential [leaky, pad, conv k, leaky, conv 1x1]
+                "conv1": conv1d_wn(sd, f"{p}.stack.2"),
+                "conv2": conv1d_wn(sd, f"{p}.stack.4"),
+                "skip": conv1d_wn(sd, f"{p}.skip_layer"),
+            }
+        idx += 2 + stacks
+    params["conv_post"] = conv1d_wn(sd, f"melgan.{idx + 2}")
+    return {"params": params}
+
+
+def _generator_sd(ckpt, ckpt_path: str = "<ckpt>"):
+    """(generator state_dict, is_official) of a reference task checkpoint
+    (``{"state_dict": {"model_gen.*": ...}}``) or an official
+    ParallelWaveGAN checkpoint (``{"model": {"generator": sd}}``)."""
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = {k[len("model_gen."):]: v
+              for k, v in ckpt["state_dict"].items()
+              if k.startswith("model_gen.")}
+        official = False
+    elif isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict) \
+            and "generator" in ckpt["model"]:
+        sd = ckpt["model"]["generator"]
+        official = True
+    else:
+        raise ValueError(
+            f"{ckpt_path}: not a recognized vocoder checkpoint (expected "
+            "'state_dict' with model_gen.* keys or model.generator)")
+    if not sd:
+        raise ValueError(f"{ckpt_path}: generator state_dict is empty")
+    return sd, official
+
+
+def _wn_weight(sd: Mapping, name: str) -> np.ndarray:
+    """A conv weight as stored (``weight`` or ``weight_v``), for shapes."""
+    key = f"{name}.weight" if f"{name}.weight" in sd else f"{name}.weight_v"
+    return _np(sd[key])
+
+
+def _load_feature_stats(stats_path: str) -> Dict[str, np.ndarray]:
+    """Official ParallelWaveGAN mel feature stats: npy ([mean, scale]) or
+    hdf5 ("mean" / "scale"), the latter through ``h5py``, which raises
+    naming the file where it is not installed."""
+    if stats_path.endswith(".npy"):
+        arr = np.load(stats_path)
+        return {"mean": np.asarray(arr[0], np.float32),
+                "scale": np.asarray(arr[1], np.float32)}
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{stats_path}: reading hdf5 feature stats needs h5py, which is "
+            "not installed; convert them to stats.npy ([mean, scale])") from e
+    with h5py.File(stats_path, "r") as f:
+        return {"mean": np.asarray(f["mean"], np.float32),
+                "scale": np.asarray(f["scale"], np.float32)}
+
+
+def _read_ckpt(ckpt_path: str, stats_path: Optional[str]):
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    sd, official = _generator_sd(ckpt, ckpt_path)
+    stats = (_load_feature_stats(stats_path)
+             if official and stats_path and os.path.exists(stats_path)
+             else None)
+    return sd, stats
+
+
+def load_pwg_checkpoint(ckpt_path: str, stats_path: Optional[str] = None,
+                        config_path: Optional[str] = None):
+    """A Parallel WaveGAN checkpoint: an official one (with its feature
+    stats, which normalize the input mel) or a reference task checkpoint
+    (no stats).  Returns (flax variables, stats or None, generator
+    hyperparameters): those of ``config.yaml``'s ``generator_params``
+    (read with the port's ``yaml_io``), overlaid with what the weights'
+    shapes show (layers, upsample scales, channel widths, the aux context
+    window, a pitch embedding).  ``stacks`` leaves no trace in the shapes
+    and comes from ``config.yaml`` alone."""
+    gen_params: Dict[str, Any] = {}
+    if config_path and os.path.exists(config_path):
+        from stylesinger_torch import yaml_io
+        gen_params = dict((yaml_io.load(config_path) or {}).get(
+            "generator_params", {}))
+    sd, stats = _read_ckpt(ckpt_path, stats_path)
+    gen_params["layers"] = len(
+        {k.split(".")[1] for k in sd if k.startswith("conv_layers.")})
+    up_idx = sorted({int(k.split(".")[3]) for k in sd
+                     if k.startswith("upsample_net.upsample.up_layers.")})
+    up = dict(gen_params.get("upsample_params", {}))
+    if up_idx:
+        # an upsample Conv2d kernel is (freq_k, 2 * scale + 1)
+        up["upsample_scales"] = [
+            (int(_wn_weight(
+                sd, f"upsample_net.upsample.up_layers.{i}").shape[-1]) - 1)
+            // 2 for i in up_idx]
+    # conv_in's kernel is 2 * aux_context_window + 1
+    up["aux_context_window"] = (int(_wn_weight(
+        sd, "upsample_net.conv_in").shape[-1]) - 1) // 2
+    gen_params["upsample_params"] = up
+    gen_params["residual_channels"] = int(_wn_weight(
+        sd, "first_conv").shape[0])
+    gen_params["gate_channels"] = int(_wn_weight(
+        sd, "conv_layers.0.conv").shape[0])
+    gen_params["skip_channels"] = int(_wn_weight(
+        sd, "conv_layers.0.conv1x1_skip").shape[0])
+    gen_params["use_pitch_embed"] = any(
+        k.startswith("pitch_embed.") for k in sd)
+    return convert_pwg(sd, layers=gen_params["layers"],
+                       n_scales=len(up_idx)), stats, gen_params
+
+
+def load_melgan_checkpoint(ckpt_path: str,
+                           stats_path: Optional[str] = None):
+    """A MelGAN checkpoint, official or reference, with the optional feature
+    stats.  Returns (flax variables, stats or None, generator
+    hyperparameters read from the weights: ``base_channels`` from
+    ``conv_pre``, ``upsample_scales`` from each transposed conv's k =
+    2r)."""
+    sd, stats = _read_ckpt(ckpt_path, stats_path)
+    # conv_pre at 1, then 5 entries per scale, conv_post at 5n + 4
+    tops = [int(k.split(".")[1]) for k in sd if k.startswith("melgan.")]
+    if not tops:
+        raise ValueError(
+            f"{ckpt_path}: no 'melgan.*' keys: not a MelGAN generator "
+            "checkpoint")
+    n_scales = (max(tops) - 4) // 5
+    gen_params = {
+        "base_channels": int(_wn_weight(sd, "melgan.1").shape[0]),
+        # a ConvTranspose1d weight is [in, out, k] with k = 2 * rate
+        "upsample_scales": [
+            int(_wn_weight(sd, f"melgan.{3 + 5 * i}").shape[2]) // 2
+            for i in range(n_scales)],
+    }
+    return convert_melgan(sd, n_scales=n_scales), stats, gen_params
+
+
+def main(argv=None) -> None:
+    """``python -m stylesinger_torch.convert <model.ckpt> <out_dir>
+    [--config path] [--hifigan]``: a reference ``model_ckpt_steps_N.ckpt``
+    in the port's own layout under ``out_dir``:
+
+    - the acoustic model (its ``model`` child): ``ckpt/model_ckpt_steps_<N>
+      .pt`` (``training/checkpoint.py``), with the config beside it as
+      ``config.yaml``: a work dir that ``StyleSingerInfer.load_params`` and
+      ``run.py infer`` read;
+    - ``--hifigan`` (its ``model_gen`` child): ``generator.pt``, which
+      ``vocoder_ckpt`` reads.
+    """
+    import argparse
+
+    from stylesinger_torch.config import load_config, save_config
+    from stylesinger_torch.training.checkpoint import save_model
+    from stylesinger_torch.vocoder_infer import GENERATOR_FILE
+
+    ap = argparse.ArgumentParser("stylesinger_torch.convert")
+    ap.add_argument("ckpt")
+    ap.add_argument("out_dir")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--hifigan", action="store_true",
+                    help="the checkpoint is a vocoder (model_gen child)")
+    a = ap.parse_args(argv)
+    cfg = load_config(a.config)
+    ckpt = torch.load(a.ckpt, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
+    sd = sd.get("model_gen" if a.hifigan else "model", sd)
+    os.makedirs(a.out_dir, exist_ok=True)
+    if a.hifigan:
+        path = os.path.join(a.out_dir, GENERATOR_FILE)
+        torch.save(from_jax_params(convert_hifigan(sd, cfg)), path)
+    else:
+        path = save_model(a.out_dir, ckpt.get("global_step", 0),
+                          from_jax_params(convert_stylesinger(sd, cfg)))
+        save_config(cfg, a.out_dir)
+    print(f"| wrote {path}")
+
+
+if __name__ == "__main__":
+    main()

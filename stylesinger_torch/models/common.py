@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stylesinger_torch.models import precision
-from stylesinger_torch.models.precision import const
+from stylesinger_torch.models.precision import at_least_f32, const
 
 LN_EPS = 1e-6
 
@@ -47,7 +47,7 @@ class LayerNorm(nn.LayerNorm):
         self.compute = compute
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+        y = F.layer_norm(at_least_f32(x), self.normalized_shape, self.weight,
                          self.bias, self.eps)
         dt = precision.compute_dtype() if self.compute else None
         return y if dt is None else y.to(dt)
@@ -202,7 +202,8 @@ class MultiheadSelfAttention(nn.Module):
         d = c // h
         q, k, v = (a.reshape(b, t, h, d).transpose(1, 2)
                    for a in self.qkv(x).split(c, dim=-1))
-        logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(d)
+        logits = at_least_f32(q) @ at_least_f32(k).transpose(-1, -2) / \
+            math.sqrt(d)
         probs = _masked_softmax(logits, key_padding_mask)
         out = (precision.cast(probs) @ v).transpose(1, 2).reshape(b, t, c)
         return self.out(out)

@@ -1,6 +1,7 @@
 """Denoisers (port of ``stylesinger_tpu/models/diffnet.py``), batch-first:
-the DiffWave-style ``DiffNet`` (mel) and ``DDiffNet`` (joint f0 + uv), and
-the transformer ``FFTDenoiser`` (mel, ``diff_decoder_type: fft``).  Under
+the DiffWave-style ``DiffNet`` (mel), ``DDiffNet`` (joint f0 + uv),
+``F0DiffNet`` (f0 alone) and ``MDiffNet`` (uv alone), and the transformer
+``FFTDenoiser`` (mel, ``diff_decoder_type: fft``).  Under
 ``compute_dtype: bfloat16`` the layers take the compute dtype where the JAX
 layers do (``models/precision.py``); the output heads stay f32."""
 
@@ -124,6 +125,43 @@ class DDiffNet(_Stack):
         x = torch.cat([self.input_projection(f0),
                        precision.cast(self.uv_embed(uv))], dim=-1) * mask
         return self.run(x, t, cond) * nonpadding[..., None]
+
+
+class F0DiffNet(_Stack):
+    """Gaussian F0 denoiser without uv: f0 [B, T, in_dims], t [B], cond,
+    nonpadding [B, T] -> [B, T, in_dims].  Its input and skip projections
+    take no compute dtype (flax ``Conv()``)."""
+
+    def __init__(self, in_dims: int = 1, cond_dim: int = 256,
+                 residual_layers: int = 10, residual_channels: int = 192,
+                 dilation_cycle_length: int = 4):
+        super().__init__(residual_channels, cond_dim, in_dims,
+                         residual_layers, dilation_cycle_length)
+        self.input_projection = Conv(in_dims, residual_channels, 1)
+        self.skip_projection.compute = False
+
+    def forward(self, f0, t, cond, nonpadding):
+        mask = nonpadding[..., None]
+        x = F.relu(self.input_projection(f0) * mask)
+        return self.run(x, t, cond) * mask
+
+
+class MDiffNet(_Stack):
+    """Categorical uv denoiser: uv int [B, T], t [B], cond, nonpadding
+    [B, T] -> class logits [B, T, num_classes]; the uv embedding is a flax
+    ``nn.Embed`` (no padding row)."""
+
+    def __init__(self, num_classes: int = 2, cond_dim: int = 256,
+                 residual_layers: int = 10, residual_channels: int = 192,
+                 dilation_cycle_length: int = 4):
+        super().__init__(residual_channels, cond_dim, num_classes,
+                         residual_layers, dilation_cycle_length)
+        self.uv_embed = nn.Embedding(num_classes, residual_channels)
+        self.skip_projection.compute = False
+
+    def forward(self, uv, t, cond, nonpadding):
+        mask = nonpadding[..., None]
+        return self.run(self.uv_embed(uv) * mask, t, cond) * mask
 
 
 class FFTDenoiser(nn.Module):

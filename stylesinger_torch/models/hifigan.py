@@ -176,19 +176,24 @@ def _unblockify(yb: torch.Tensor, b: int, block: int, halo: int,
 
 
 class ConvTranspose(nn.Module):
-    """torch ConvTranspose1d(k, stride=u, padding=(k-u)//2) on [B, T, C]."""
+    """torch ConvTranspose1d(k, stride=u, padding, output_padding) on
+    [B, T, C]; the padding defaults to (k-u)//2."""
 
-    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
+                 padding: Optional[int] = None, output_padding: int = 0):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_in, c_out, kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out))
         self.stride = stride
-        self.padding = (kernel_size - stride) // 2
+        self.padding = (kernel_size - stride) // 2 if padding is None \
+            else padding
+        self.output_padding = output_padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(
             x.transpose(1, 2), self.weight.to(x.dtype),
-            self.bias.to(x.dtype), self.stride, self.padding).transpose(1, 2)
+            self.bias.to(x.dtype), self.stride, self.padding,
+            self.output_padding).transpose(1, 2)
 
 
 class HifiGanGenerator(nn.Module):

@@ -65,6 +65,12 @@ def cast(x):
     return x.to(_DTYPE)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in its own dtype where that is wider (f64): flax
+    takes statistics and logits in ``promote_types(float32, x.dtype)``."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 @functools.lru_cache(maxsize=None)
 def const(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``, as ``jnp.asarray(value, dtype)``."""

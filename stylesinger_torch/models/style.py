@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from stylesinger_torch.models.common import (
     ConvBlocks, Dense, LayerNorm, MultiheadCrossAttention, WN, dropout,
 )
+from stylesinger_torch.models.precision import at_least_f32
 from stylesinger_torch.models.rq import RQBottleneck
 from stylesinger_torch.parallel.mesh import global_sum
 
@@ -128,10 +129,11 @@ class LocalStyleAdaptor(nn.Module):
         """ref_mels [B, T, M], ref_f0 [B, T] -> (style [B, T, H], the
         commitment loss, codes), or (style, None, None) without RQ.
         ``noise`` (training) updates the codebooks.  The style enters the
-        RQ bottleneck in f32 (it is in the compute dtype without it)."""
-        nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(torch.float32)
+        RQ bottleneck in f32 (it is in the compute dtype without it), or in
+        f64 when the model runs in f64."""
+        nonpadding = (ref_mels[:, :, 0].abs() > 1e-8).to(ref_mels.dtype)
         h = self.wavenet(ref_mels, nonpadding) + ref_f0[..., None]
         style = self.encoder(h, nonpadding, drop)
         if not use_rq:
             return style, None, None
-        return self.rq(style.float(), noise, nonpadding)
+        return self.rq(at_least_f32(style), noise, nonpadding)

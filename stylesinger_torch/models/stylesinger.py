@@ -48,14 +48,13 @@ from stylesinger_torch.models.common import (
 )
 from stylesinger_torch.models.diffnet import DDiffNet, DiffNet, FFTDenoiser
 from stylesinger_torch.models.fs2 import (
-    expand_states, grad_scale, predict_mel2ph,
+    DVEC_DIM, expand_states, grad_scale, predict_mel2ph,
 )
 from stylesinger_torch.models.style import LocalStyleAdaptor, ProsodyAligner
 from stylesinger_torch.models.umln import UMLN
 
 _LF0_MIN = 6.0
 _LF0_MAX = 10.0
-DVEC_DIM = 256  # d-vector width of the GE2E encoders
 
 
 def minmax_norm_lf0(x: torch.Tensor,

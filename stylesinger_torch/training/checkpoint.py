@@ -47,6 +47,18 @@ def load_payload(path: str, device: Any = "cpu") -> Dict[str, Any]:
     return torch.load(path, map_location=device, weights_only=True)
 
 
+def save_model(work_dir: str, step: int,
+               state_dict: Dict[str, torch.Tensor]) -> str:
+    """A model alone (no optimizer) as ``ckpt/model_ckpt_steps_<step>.pt``
+    under ``work_dir``, the payload ``load_params`` reads; returns the
+    path."""
+    ckpt_dir = os.path.join(os.path.abspath(work_dir), "ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"model_ckpt_steps_{int(step)}.pt")
+    _save({"model": state_dict, "step": int(step)}, path)
+    return path
+
+
 def latest_checkpoint(work_dir: str) -> Optional[Tuple[int, str]]:
     """(step, path) of the latest ``ckpt/model_ckpt_steps_<step>.pt`` under
     ``work_dir``; None when there is none.  Creates nothing."""

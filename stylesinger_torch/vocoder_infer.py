@@ -7,8 +7,10 @@ crossfaded chunks of one shape (:meth:`HifiGAN_NSF.spec2wav_streaming`),
 and applies the spectral-subtraction denoiser when ``vocoder_denoise_c``
 > 0.  Its weights come from ``vocoder_ckpt`` (:func:`load_vocoder_state_dict`)
 when that is set.  :func:`get_vocoder_cls` picks the wrapper that
-``vocoder`` names (the JAX package's registry), ``HifiGAN_NSF`` or the
-weightless ``GriffinLim``; the PWG and MelGAN wrappers are not ported.
+``vocoder`` names (the JAX package's registry): ``HifiGAN_NSF``, the
+weightless ``GriffinLim``, or the alternative ``PWG`` and ``MelGAN``, whose
+weights come from an official ParallelWaveGAN checkpoint or a reference
+task checkpoint that ``vocoder_ckpt`` names (:func:`_find_legacy_ckpt`).
 """
 
 from __future__ import annotations
@@ -22,13 +24,19 @@ import numpy as np
 import torch
 
 from stylesinger_torch.convert import (
-    convert_hifigan, from_jax_params, load_torch_checkpoint,
+    convert_hifigan, from_jax_params, load_melgan_checkpoint,
+    load_pwg_checkpoint, load_torch_checkpoint,
 )
 from stylesinger_torch.dsp.denoise import denoise
 from stylesinger_torch.dsp.griffin_lim import griffin_lim, mel_to_linear
+from stylesinger_torch.dsp.pitch import f0_to_coarse
 from stylesinger_torch.inference import init_random_, resolve_device
 from stylesinger_torch.models.diffusion import Noise
 from stylesinger_torch.models.hifigan import HifiGanGenerator
+from stylesinger_torch.models.legacy_vocoders import (
+    MelGANGenerator, ParallelWaveGANGenerator,
+)
+
 GAN_STATE_FILE = "gan_state.pt"   # fit_vocoder's whole GAN state
 GENERATOR_FILE = "generator.pt"   # fit_vocoder's trained generator
 
@@ -190,17 +198,178 @@ class GriffinLim:
         ).cpu().numpy()
 
 
+def _find_legacy_ckpt(base: str) -> tuple:
+    """(checkpoint, feature stats, config.yaml), each a path or None, for
+    ``vocoder_ckpt`` of the PWG / MelGAN wrappers: a file itself, or a
+    directory holding official ``checkpoint-<N>steps.pkl`` files (with
+    ``stats.h5`` or ``stats.npy`` and ``config.yaml``) or reference
+    ``model_ckpt_steps_<N>.ckpt`` files, the highest N first."""
+    if not base:
+        return None, None, None
+    if os.path.isfile(base):
+        d, ckpt = os.path.dirname(base), base
+    elif os.path.isdir(base):
+        d = base
+        official = glob.glob(os.path.join(d, "checkpoint-*steps.pkl"))
+        custom = glob.glob(os.path.join(d, "model_ckpt_steps_*.ckpt"))
+        if official:
+            ckpt = max(official, key=lambda p: int(re.findall(
+                r"checkpoint-(\d+)steps", p)[0]))
+        elif custom:
+            ckpt = max(custom, key=lambda p: int(re.findall(
+                r"steps_(\d+)", p)[0]))
+        else:
+            return None, None, None
+    else:
+        return None, None, None
+    stats = next((p for p in (os.path.join(d, "stats.h5"),
+                              os.path.join(d, "stats.npy"))
+                  if os.path.exists(p)), None)
+    cfgp = os.path.join(d, "config.yaml")
+    return ckpt, stats, cfgp if os.path.exists(cfgp) else None
+
+
+class _LegacyVocoder:
+    """What the PWG and MelGAN wrappers share: the device, the feature
+    stats of an official checkpoint (the input mel is normalized by them),
+    the generator's weights, and the hop-size check."""
+
+    name = ""
+
+    def _load(self, cfg: Any, loader) -> Optional[tuple]:
+        """(state_dict, stats, generator hyperparameters) of
+        ``vocoder_ckpt``; None, with JAX's warning where it is set but
+        holds no checkpoint."""
+        ckpt, stats_p, cfg_p = _find_legacy_ckpt(cfg.get("vocoder_ckpt", ""))
+        if ckpt is None:
+            if cfg.get("vocoder_ckpt", ""):
+                print(f"| WARN: vocoder_ckpt {cfg['vocoder_ckpt']} has no "
+                      f"{self.name} checkpoint; using random weights")
+            return None
+        variables, stats, gp = loader(ckpt, stats_p, cfg_p)
+        print(f"| Loaded {self.name} vocoder from {ckpt}"
+              + (" (+feature stats)" if stats else ""))
+        return from_jax_params(variables), stats, gp
+
+    def _place(self, model, sd, seed: int) -> None:
+        if sd is None:
+            init_random_(model, torch.Generator().manual_seed(seed),
+                         conv_std=0.01)
+        else:
+            model.load_state_dict(sd)
+        self.model = model.to(self.device).eval()
+        if model.hop != int(self.cfg["hop_size"]):
+            print(f"| WARN: {self.name} upsample scales multiply to "
+                  f"{model.hop} but the pipeline hop_size is "
+                  f"{self.cfg['hop_size']}; wav lengths will disagree with "
+                  "frames*hop_size")
+
+    def _mel(self, mel: np.ndarray) -> torch.Tensor:
+        c = np.asarray(mel, np.float32)
+        if self.stats is not None:
+            c = (c - self.stats["mean"]) / self.stats["scale"]
+        return torch.as_tensor(c, device=self.device)[None]
+
+
+class PWG(_LegacyVocoder):
+    """Parallel WaveGAN: mel [T, M] (+ f0 [T] for a generator with a pitch
+    embedding) -> wav [T * hop].
+
+    The generator's shape: the ``pwg_*`` keys of ``cfg`` (defaults 30
+    layers, 3 stacks, 64 / 128 / 64 channels, aux context window 2, no
+    pitch embedding), overlaid by what the checkpoint shows
+    (:func:`convert.load_pwg_checkpoint`); its weights those of
+    ``vocoder_ckpt``, else seeded random ones (``seed``).  Each call draws
+    the noise from a fresh ``Noise(seed)`` unless ``noise`` is given."""
+
+    name = "PWG"
+
+    def __init__(self, cfg: Any, device: Union[str, torch.device] = "cuda",
+                 seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.stats = None
+        gen_kw: Dict[str, Any] = {
+            "layers": int(cfg.get("pwg_layers", 30)),
+            "stacks": int(cfg.get("pwg_stacks", 3)),
+            "residual_channels": int(cfg.get("pwg_residual_channels", 64)),
+            "gate_channels": int(cfg.get("pwg_gate_channels", 128)),
+            "skip_channels": int(cfg.get("pwg_skip_channels", 64)),
+            "aux_context_window": int(cfg.get("pwg_aux_context_window", 2)),
+            "use_pitch_embed": bool(cfg.get("pwg_use_pitch_embed", False)),
+        }
+        loaded = self._load(cfg, load_pwg_checkpoint)
+        sd = None
+        if loaded is not None:
+            sd, self.stats, gp = loaded
+            up = gp.get("upsample_params", {})
+            for key in ("layers", "stacks", "residual_channels",
+                        "gate_channels", "skip_channels"):
+                gen_kw[key] = int(gp.get(key, gen_kw[key]))
+            gen_kw["aux_context_window"] = int(up.get(
+                "aux_context_window", gp.get("aux_context_window",
+                                             gen_kw["aux_context_window"])))
+            gen_kw["use_pitch_embed"] = bool(gp.get(
+                "use_pitch_embed", gen_kw["use_pitch_embed"]))
+            if "stacks" not in gp and "pwg_stacks" not in cfg:
+                # the dilation schedule leaves no trace in the weights: a
+                # wrong default loads cleanly and corrupts the audio
+                print("| WARN: PWG 'stacks' not in config.yaml and no "
+                      f"pwg_stacks in cfg; assuming {gen_kw['stacks']} "
+                      "(dilation schedule is NOT recoverable from the "
+                      "weights - set pwg_stacks if training differed)")
+            if up.get("upsample_scales"):
+                self.cfg = cfg = type(cfg)(cfg)
+                cfg["pwg_upsample_scales"] = list(up["upsample_scales"])
+        self._place(ParallelWaveGANGenerator(cfg, **gen_kw), sd, seed)
+
+    @torch.no_grad()
+    def spec2wav(self, mel: np.ndarray, f0: Optional[np.ndarray] = None,
+                 noise=None, **kwargs) -> np.ndarray:
+        c = self._mel(mel)
+        pitch = None
+        if self.model.use_pitch_embed:
+            f0 = np.zeros(c.shape[1], np.float32) if f0 is None else f0
+            pitch = f0_to_coarse(torch.as_tensor(
+                np.asarray(f0, np.float32)[: c.shape[1]],
+                device=self.device))[None]
+        noise = noise if noise is not None else Noise(self.seed, self.device)
+        return self.model(c, noise, pitch)[0].cpu().numpy()
+
+
+class MelGAN(_LegacyVocoder):
+    """MelGAN: mel [T, M] -> wav [T * hop].  A checkpoint sets the
+    generator's width and upsample rates (read from its weights); without
+    one they are 512 and ``upsample_rates``, with seeded random weights."""
+
+    name = "MelGAN"
+
+    def __init__(self, cfg: Any, device: Union[str, torch.device] = "cuda",
+                 seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.stats = None
+        loaded = self._load(cfg, lambda ck, st, _: load_melgan_checkpoint(
+            ck, stats_path=st))
+        sd, gen_kw = None, {}
+        if loaded is not None:
+            sd, self.stats, gp = loaded
+            gen_kw = {"base_channels": gp["base_channels"]}
+            self.cfg = cfg = type(cfg)(cfg)
+            cfg["melgan_upsample_scales"] = list(gp["upsample_scales"])
+        self._place(MelGANGenerator(cfg, **gen_kw), sd, seed)
+
+    @torch.no_grad()
+    def spec2wav(self, mel: np.ndarray, **kwargs) -> np.ndarray:
+        return self.model(self._mel(mel))[0].cpu().numpy()
+
+
 VOCODERS: Dict[str, Type] = {"HifiGAN_NSF": HifiGAN_NSF,
-                             "GriffinLim": GriffinLim}
-# registered in the JAX package, not ported yet: the ROADMAP item of each
-UNPORTED_VOCODERS = {"PWG": "queue 1, item 9", "MelGAN": "queue 1, item 9"}
+                             "GriffinLim": GriffinLim, "PWG": PWG,
+                             "MelGAN": MelGAN}
 
 
 def get_vocoder_cls(cfg: Any) -> Type:
     """The wrapper class that ``cfg['vocoder']`` names."""
-    name = cfg["vocoder"]
-    if name in UNPORTED_VOCODERS:
-        raise NotImplementedError(
-            f"stylesinger_torch does not port the {name} vocoder yet "
-            f"(ROADMAP.md {UNPORTED_VOCODERS[name]})")
-    return VOCODERS[name]
+    return VOCODERS[cfg["vocoder"]]

@@ -314,8 +314,8 @@ def test_tiny_bf16_train_step_on_the_card_matches_cpu(cuda):
     loss and the grad norm finite and within 1e-4 (relative, atol 1e-4);
     all gradients within 1e-2 in relative L2 and at cosine similarity above
     0.9999.  The card ran in bf16: every compute layer that ran returned
-    bf16 (the attention's ``qkv``, the FFN's ``Conv_0`` and WaveNet's
-    ``in_0`` among them), and its gradient is more than 0.4 % (relative L2)
+    bf16 (the attention's ``qkv``, the FFN's ``Conv_0``, WaveNet's ``in_0``
+    and the style encoder's ``res_0.ln_0`` among them), and its gradient is more than 0.4 % (relative L2)
     from the CPU's f32 step's (1.2 % measured on the CPU); the parameters
     stay f32."""
     cfg = tiny_test_config(compute_dtype="bfloat16")
@@ -327,7 +327,7 @@ def test_tiny_bf16_train_step_on_the_card_matches_cpu(cuda):
         assert math.isfinite(m_gpu[k].item()), k
         assert abs(m_gpu[k].item() - v.item()) <= 1e-4 * max(
             1.0, abs(v.item())), k
-    for site in (".qkv", ".Conv_0", ".in_0"):
+    for site in (".qkv", ".Conv_0", ".in_0", ".res_0.ln_0"):
         assert any(name.endswith(site) for name in seen), site
     assert all(d == {torch.bfloat16} for d in seen.values()), seen
     cpu32 = _cpu_step(tiny_test_config(compute_dtype="float32"))[0]
@@ -691,3 +691,138 @@ def test_tsd_batch_reaches_the_card_through_pinned_memory(cuda, tmp_path):
             np.testing.assert_array_equal(v.cpu().numpy(), h[k])
     pinned = to_device({"x": np.ones(3, np.float32)}, "cpu")["x"]
     assert not pinned.is_cuda
+
+
+class _Draws:
+    """Dropout drawn on a CPU generator, recorded; replayed on the card."""
+
+    def __init__(self, seed=0, draws=None, device="cpu"):
+        self.g = torch.Generator().manual_seed(seed)
+        self.draws = [] if draws is None else list(draws)
+        self.replay = draws is not None
+        self.device = device
+
+    def bernoulli(self, p, shape=()):
+        if self.replay:
+            return self.draws.pop(0).to(self.device)
+        a = torch.rand(tuple(shape), generator=self.g) < p
+        self.draws.append(a)
+        return a.clone()
+
+
+def _family_batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    m = cfg["audio_num_mel_bins"]
+    mel2ph = np.repeat(np.arange(1, 9), 4)[None].repeat(2, 0)
+    mel2ph[1, -4:] = 0
+    txt = rng.integers(1, 20, (2, 8))
+    txt[1, -1] = 0
+    frame = (mel2ph > 0).astype(np.float32)
+    b = dict(txt_tokens=txt, mel2ph=mel2ph,
+             spk_embed=rng.standard_normal((2, 256)).astype(np.float32),
+             f0=rng.uniform(7, 8.5, (2, 32)).astype(np.float32),
+             uv=(rng.uniform(size=(2, 32)) < 0.3) * frame,
+             energy=rng.uniform(0, 3.99, (2, 32)).astype(np.float32),
+             mels=(rng.standard_normal((2, 32, m)) * frame[..., None]))
+    return {k: torch.as_tensor(v).float() if np.asarray(v).dtype.kind == "f"
+            else torch.as_tensor(v) for k, v in b.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["fs2_frame_energy", "fs2_cwt", "pe"])
+def test_fs2_and_pe_train_steps_on_the_card_match_cpu(cuda, family):
+    """One step of FastSpeech2 / the PitchExtractor from the same weights,
+    batch and dropout: every loss within 1e-4 (relative, atol 1e-4), each
+    gradient leaf within 1e-3 * max|g_leaf| + 1e-6 * max|g|; no kernel."""
+    from stylesinger_torch.models.fs2 import FastSpeech2
+    from stylesinger_torch.models.pe import PitchExtractor
+    from stylesinger_torch.training import fs2_task
+    from stylesinger_torch.training.step import Optimizer, TrainState
+
+    if family == "pe":
+        cfg = tiny_test_config()
+        build, make = (lambda: PitchExtractor(cfg)), \
+            fs2_task.make_pe_train_step
+    else:
+        cfg = tiny_test_config(
+            pitch_type=family.split("_")[1],
+            use_energy_embed=family.endswith("energy"))
+        build, make = (lambda: FastSpeech2(cfg, 20, out_dims=16)), \
+            fs2_task.make_fs2_train_step
+    batch = _family_batch(cfg)
+    cpu = fs2_task.init_fs2_state(build(), cfg, seed=1)
+    first = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    rec = _Draws(2)
+    m_cpu = make(cfg)(cpu, batch, drop=rec)
+    model = build()
+    model.load_state_dict(first)
+    gpu = TrainState(model.to(cuda), Optimizer(
+        dict(model.named_parameters()), cfg))
+    melk.counter.reset()
+    mrfk.counter.reset()
+    m_gpu = make(cfg)(gpu, {k: v.to(cuda) for k, v in batch.items()},
+                      drop=_Draws(draws=rec.draws, device=cuda))
+    assert melk.counter.count == mrfk.counter.count == 0
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-4 * max(
+            1.0, abs(v.item())), k
+    grads = {k: p.grad for k, p in cpu.model.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in grads.values()
+                if g is not None)
+    for name, p in gpu.model.named_parameters():
+        ref = grads[name]
+        if ref is None:
+            assert p.grad is None or not p.grad.any(), name
+            continue
+        err = float((p.grad.cpu() - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()) + 1e-6 * g_max, name
+
+
+@pytest.mark.cuda
+def test_legacy_vocoders_and_denoisers_on_the_card_match_cpu(cuda):
+    """PWG (with and without its pitch embedding), MelGAN, PQMF analysis
+    and synthesis, F0DiffNet and MDiffNet: the same weights, inputs and
+    noise on the card and the CPU, within 1e-4 of max(1, max|y|)."""
+    from stylesinger_torch.models import legacy_vocoders as lv
+    from stylesinger_torch.models.diffnet import F0DiffNet, MDiffNet
+
+    cfg = tiny_test_config(pwg_upsample_scales=[4, 4],
+                           melgan_upsample_scales=[4, 2])
+    g = torch.Generator().manual_seed(3)
+    mel = torch.randn((2, 12, 16), generator=g)
+    noise = torch.randn((2, 192, 1), generator=g)
+    pitch = torch.randint(1, 256, (2, 12), generator=g)
+    t = 24
+    cond = torch.randn((2, t, 12), generator=g)
+    mask = torch.ones((2, t))
+    mask[1, -6:] = 0
+    steps = torch.tensor([3, 71])
+    pwg_kw = dict(layers=6, stacks=3, residual_channels=8, gate_channels=16,
+                  skip_channels=8)
+    cases = [
+        (lambda: lv.ParallelWaveGANGenerator(cfg, **pwg_kw), (mel, noise)),
+        (lambda: lv.ParallelWaveGANGenerator(cfg, use_pitch_embed=True,
+                                             **pwg_kw), (mel, noise, pitch)),
+        (lambda: lv.MelGANGenerator(cfg, base_channels=32), (mel,)),
+        (lambda: F0DiffNet(cond_dim=12, residual_layers=3,
+                           residual_channels=8),
+         (torch.randn((2, t, 1), generator=g), steps, cond, mask)),
+        (lambda: MDiffNet(cond_dim=12, residual_layers=3,
+                          residual_channels=8),
+         (torch.randint(0, 2, (2, t), generator=g), steps, cond, mask))]
+    for build, args in cases:
+        cpu = build()
+        init_random_(cpu, torch.Generator().manual_seed(4), conv_std=0.1)
+        card = build()
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            ref = cpu(*args)
+            out = card.to(cuda)(*(a.to(cuda) for a in args)).cpu()
+        assert (out - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max())
+    wav = torch.randn((2, 4000), generator=g)
+    pq, pq_card = lv.PQMF(), lv.PQMF().to(cuda)
+    for ref, out in ((pq.analysis(wav), pq_card.analysis(wav.to(cuda))),
+                     (pq.synthesis(pq.analysis(wav)),
+                      pq_card.synthesis(pq_card.analysis(wav.to(cuda))))):
+        assert (out.cpu() - ref).abs().max() <= 1e-4 * max(
+            1.0, ref.abs().max())

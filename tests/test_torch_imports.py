@@ -75,7 +75,12 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.data.binarize",
                      "stylesinger_torch.models.precision",
                      "stylesinger_torch.parallel.mesh",
-                     "stylesinger_torch.yaml_io"):
+                     "stylesinger_torch.yaml_io",
+                     "stylesinger_torch.models.fs2",
+                     "stylesinger_torch.models.pe",
+                     "stylesinger_torch.models.diffnet",
+                     "stylesinger_torch.models.legacy_vocoders",
+                     "stylesinger_torch.training.fs2_task"):
         assert expected in names
 
 

@@ -182,19 +182,18 @@ def test_test_runner_wavs_and_f0s_match_jax(runner_pair):
 
 
 def test_get_vocoder_cls_covers_jax_registry():
-    """``HifiGAN_NSF`` as in JAX; JAX's other registered wrappers raise,
-    naming the ROADMAP item that ports them."""
+    """Every wrapper JAX registers, under its name: ``HifiGAN_NSF`` by
+    default, and ``PWG`` and ``MelGAN``."""
     from stylesinger_tpu.vocoder_infer import VOCODERS as JAX_VOCODERS
 
     from stylesinger_torch.vocoder_infer import (
-        UNPORTED_VOCODERS, VOCODERS, get_vocoder_cls,
+        MelGAN, PWG, VOCODERS, get_vocoder_cls,
     )
 
-    assert set(JAX_VOCODERS) == set(VOCODERS) | set(UNPORTED_VOCODERS)
+    assert set(JAX_VOCODERS) == set(VOCODERS)
     assert get_vocoder_cls(tiny_test_config()) is HifiGAN_NSF
-    for name in ("PWG", "MelGAN"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_vocoder_cls(tiny_test_config(vocoder=name))
+    for name, cls in (("PWG", PWG), ("MelGAN", MelGAN)):
+        assert get_vocoder_cls(tiny_test_config(vocoder=name)) is cls
 
 
 # ---------------------------------------------------------------- test_ids

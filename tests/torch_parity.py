@@ -15,9 +15,11 @@
   rate were 0.
 - :func:`one_torch_thread`: a module fixture that runs torch on one
   intra-op thread.
-- :func:`reference_stylesinger_sd`: a reference-layout ``StyleSinger``
-  state dict from the JAX model's flax variables, the inverse of
-  ``stylesinger_tpu/convert.py::convert_stylesinger``.
+- :func:`reference_stylesinger_sd`, :func:`reference_pwg_sd`,
+  :func:`reference_melgan_sd` (from ``tests/reference_layout.py``, which
+  needs no JAX): reference-layout state dicts from flax variables, the
+  inverses of the JAX package's ``convert_stylesinger``, ``convert_pwg``
+  and ``convert_melgan``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+from reference_layout import (  # noqa: F401 (re-exported)
+    reference_melgan_sd, reference_pwg_sd, reference_stylesinger_sd,
+)
 
 
 def _leaf_value(path, shape, rng, gain):
@@ -278,162 +283,6 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
-
-
-def _layers(tree, stem):
-    """The indices of ``<stem><i>`` children, in order."""
-    return sorted(int(k[len(stem):]) for k in tree
-                  if k.startswith(stem) and k[len(stem):].isdigit())
-
-
-def reference_stylesinger_sd(variables, channel_norm: str = "gamma"):
-    """A state dict in the reference (AaronZ345/StyleSinger) layout of
-    ``StyleSinger`` from the JAX model's flax ``variables``, by inverting
-    the layout rules of ``stylesinger_tpu/convert.py::convert_stylesinger``:
-    Dense kernels transposed, conv kernels [k, in, out] -> [out, in, k], the
-    self-attention's qkv kernel and the aligner's q/k/v fused into
-    ``in_proj_*``, the style WaveNet's convs weight-normed (``weight_v`` the
-    kernel, ``weight_g`` its norm), a padding row under each codebook, and
-    the style encoder's channel norms as ``gamma``/``beta`` [1, C, 1]
-    (``channel_norm="gamma"``) or ``weight``/``bias``."""
-    p = variables["params"]
-    sd = {}
-
-    def put(name, a):
-        sd[name] = torch.tensor(np.ascontiguousarray(np.asarray(a,
-                                                                np.float32)))
-
-    def lin(name, leaf):
-        put(f"{name}.weight", np.asarray(leaf["kernel"]).T)
-        if "bias" in leaf:
-            put(f"{name}.bias", leaf["bias"])
-
-    def conv(name, leaf, weight_norm=False):
-        w = np.asarray(leaf["kernel"]).transpose(2, 1, 0)
-        if weight_norm:
-            put(f"{name}.weight_v", w)
-            put(f"{name}.weight_g", np.sqrt(
-                (w.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True)))
-        else:
-            put(f"{name}.weight", w)
-        if "bias" in leaf:
-            put(f"{name}.bias", leaf["bias"])
-
-    def ln(name, leaf):
-        put(f"{name}.weight", leaf["scale"])
-        put(f"{name}.bias", leaf["bias"])
-
-    def channel_ln(name, leaf):
-        if channel_norm == "gamma":
-            put(f"{name}.gamma", np.asarray(leaf["scale"])[None, :, None])
-            put(f"{name}.beta", np.asarray(leaf["bias"])[None, :, None])
-        else:
-            ln(name, leaf)
-
-    def emb(name, leaf):
-        put(f"{name}.weight", leaf["embedding"])
-
-    def fft_blocks(prefix, blocks):
-        for i in _layers(blocks, "layer_"):
-            lay, q = blocks[f"layer_{i}"], f"{prefix}layers.{i}.op"
-            attn = lay["MultiheadSelfAttention_0"]
-            ln(f"{q}.layer_norm1", lay["LayerNorm_0"])
-            put(f"{q}.self_attn.in_proj_weight",
-                np.asarray(attn["qkv"]["kernel"]).T)
-            put(f"{q}.self_attn.out_proj.weight",
-                np.asarray(attn["out"]["kernel"]).T)
-            ln(f"{q}.layer_norm2", lay["LayerNorm_1"])
-            conv(f"{q}.ffn.ffn_1", lay["TransformerFFN_0"]["Conv_0"])
-            lin(f"{q}.ffn.ffn_2",
-                lay["TransformerFFN_0"]["LambdaDense_0"]["Dense_0"])
-        if "pos_embed_alpha" in blocks:
-            put(f"{prefix}pos_embed_alpha", blocks["pos_embed_alpha"])
-        if "LayerNorm_0" in blocks:
-            ln(f"{prefix}layer_norm", blocks["LayerNorm_0"])
-
-    def conv_predictor(prefix, tree):
-        for i in _layers(tree, "conv_"):
-            conv(f"{prefix}conv.{i}.1", tree[f"conv_{i}"])
-            ln(f"{prefix}conv.{i}.3", tree[f"ln_{i}"])
-        lin(f"{prefix}linear", tree["out"])
-        if "pos_embed_alpha" in tree:
-            put(f"{prefix}pos_embed_alpha", tree["pos_embed_alpha"])
-
-    def diffnet(prefix, tree):
-        conv(f"{prefix}input_projection", tree["input_projection"])
-        if "uv_embed" in tree:
-            emb(f"{prefix}uv_embed", tree["uv_embed"])
-        lin(f"{prefix}mlp.0", tree["mlp"]["fc1"])
-        lin(f"{prefix}mlp.2", tree["mlp"]["fc2"])
-        conv(f"{prefix}skip_projection", tree["skip_projection"])
-        conv(f"{prefix}output_projection", tree["output_projection"])
-        for i in _layers(tree, "residual_"):
-            r, q = tree[f"residual_{i}"], f"{prefix}residual_layers.{i}"
-            conv(f"{q}.dilated_conv", r["dilated_conv"])
-            lin(f"{q}.diffusion_projection", r["diffusion_projection"])
-            conv(f"{q}.conditioner_projection", r["conditioner_projection"])
-            conv(f"{q}.output_projection", r["output_projection"])
-
-    emb("encoder.embed_tokens", p["encoder"]["embed_tokens"])
-    fft_blocks("encoder.", p["encoder"]["blocks"])
-    fft_blocks("decoder.", p["decoder"]["blocks"])
-    ne = p["note_encoder"]
-    emb("note_encoder.emb", ne["emb"])
-    emb("note_encoder.type_emb", ne["type_emb"])
-    lin("note_encoder.dur_ln", ne["dur_ln"])
-    for name in ("spk_embed_proj", "emo_embed_proj", "l1", "ln_proj",
-                 "mel_out"):
-        if name in p:
-            lin(name, p[name])
-    emb("pitch_embed", p["pitch_embed"])
-    conv_predictor("dur_predictor.", p["dur_predictor"])
-    for name in ("pitch_predictor", "pitch_inpainter_predictor"):
-        if name in p:
-            conv_predictor(f"{name}.", p[name])
-    if "norm" in p:
-        lin("norm.affine_layer.linear_layer", p["norm"]["affine"])
-    if "style_extractor" in p:
-        wn = p["style_extractor"]["wavenet"]
-        for i in _layers(wn, "in_"):
-            conv(f"style_extractor.wavenet.in_layers.{i}", wn[f"in_{i}"],
-                 weight_norm=True)
-            conv(f"style_extractor.wavenet.res_skip_layers.{i}",
-                 wn[f"res_skip_{i}"], weight_norm=True)
-        enc = p["style_extractor"]["encoder"]
-        for i in _layers(enc, "res_"):
-            for j in _layers(enc[f"res_{i}"], "ln_"):
-                q = f"style_extractor.encoder.res_blocks.{i}.blocks.{j}"
-                channel_ln(f"{q}.0", enc[f"res_{i}"][f"ln_{j}"])
-                conv(f"{q}.1", enc[f"res_{i}"][f"conv_a_{j}"])
-                conv(f"{q}.4", enc[f"res_{i}"][f"conv_b_{j}"])
-        channel_ln("style_extractor.encoder.last_norm", enc["last_norm"])
-        conv("style_extractor.encoder.post_net1", enc["post"])
-        rq = variables["codebook"]["style_extractor"]["rq"]
-        for i in _layers(rq, "codebook_"):
-            cb, q = rq[f"codebook_{i}"], f"style_extractor.rqvae.codebooks.{i}"
-            table = np.asarray(cb["embedding"])
-            put(f"{q}.weight", np.concatenate(
-                [table, np.zeros_like(table[:1])]))
-            put(f"{q}.cluster_size_ema", cb["cluster_size_ema"])
-            put(f"{q}.embed_ema", cb["embed_ema"])
-        for i in _layers(p["align"], "layer_"):
-            lay, q = p["align"][f"layer_{i}"], f"align.layers.{i}"
-            mha = lay["mha"]
-            put(f"{q}.multihead_attn.in_proj_weight", np.concatenate(
-                [np.asarray(mha[n]["kernel"]).T for n in "qkv"]))
-            put(f"{q}.multihead_attn.in_proj_bias", np.concatenate(
-                [np.asarray(mha[n]["bias"]) for n in "qkv"]))
-            lin(f"{q}.multihead_attn.out_proj", mha["out"])
-            for name in ("linear1", "linear2"):
-                lin(f"{q}.{name}", lay[name])
-            for name in ("norm1", "norm2"):
-                ln(f"{q}.{name}", lay[name])
-    for name in ("gm_diffnet", "gm_diffnet_inpainte"):
-        if name in p:
-            diffnet(f"{name}.", p[name])
-    if "postdiff" in p:
-        diffnet("postdiff.denoise_fn.", p["postdiff"])
-    return sd
 
 
 def write_reference_ckpt(path: str, variables, **kwargs) -> str:
