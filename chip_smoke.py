@@ -67,6 +67,14 @@ Phases, each printed on its own line with its elapsed seconds:
      ``Conv_0`` and WaveNet's ``in_0`` among them) returned bf16, and its
      gradient is more than 0.4 % (relative L2) from the CPU's f32 step's;
      no kernel;
+   - ``train dispatch``: the ``train recipe`` run with
+     ``steps_per_dispatch=6``, f32 and then bf16, under deterministic
+     algorithms and an lr that warms up over 6 steps: two windows of 6
+     steps, each phase's first step eager and the capture following it,
+     the other 5 CUDA graph replays; each step's losses and grad norm,
+     and each parameter, RQ codebook buffer and Adam moment after the 12
+     steps, against 12 eager steps from the same weights, within 1e-6
+     relative, the spread of two eager runs printed beside it; no kernel;
    - ``settings``: one tiny train step each with ``decoder: prodiff`` (on
      the WaveNet and on the FFT denoiser), ``use_spk_id``, ``rel_pos`` and
      ``pitch_type: ph``, on the card against the CPU at the ``small train
@@ -102,6 +110,13 @@ Phases, each printed on its own line with its elapsed seconds:
      resynthesis mel L1 through ``wav2spec`` (the mel kernel, held against
      its plain twin on both wavs), finite, with no gate on random-start
      weights;
+   - ``vocoder gan dispatch``: ``fit_vocoder(spd=10)`` at that width and
+     those crops, under deterministic algorithms: one CUDA graph of the
+     iteration (crops, discriminator step with the f32 MRF kernel in its
+     generator pass, generator step), 9 replays; its losses and
+     parameters against the same 10 iterations run eagerly, within 1e-6
+     relative; the wrapper counts the eager iteration's 27 MRF launches
+     and the 27 the capture records into the graph;
 6. singing with what phases 4 and 5 trained, at the recipe's width (the
    ``train recipe`` work dir and the ``vocoder gan`` generator are kept
    in a temporary directory inside the checkout until then):
@@ -175,7 +190,16 @@ Phases, each printed on its own line with its elapsed seconds:
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
    so that no profiler session comes before the timed requests; the
    recipe's request 0 stage timing is then repeated, to show whether
-   profiling slowed the process.
+   profiling slowed the process; then ``train dispatch timing``, on
+   states of its own (a ``steps_per_dispatch=6`` fit to step 8, f32 and
+   bf16): the capture time per phase, the draws a replay fills, warm ms
+   per step graphed and eager in turns, peak memory, and the device's
+   busy time and idle share of 3 graphed and 3 eager steps
+   (``torch.profiler``); and ``vocoder gan timing`` (``fit_vocoder(spd=3)``
+   at ``vocoder gan dispatch``'s shapes): ms per iteration graphed and
+   eager in turns, and the MRF kernels ``torch.profiler`` sees in each
+   of 2 replays (27, while the wrapper's count stays put).  The
+   ``kernels`` line's launches are the requests' (phase 2).
 
 It prints a JSON line with one entry per kernel, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -185,6 +209,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -200,6 +225,16 @@ SEED = 1234
 # train recipe: steps per curriculum phase (the first pays the phase's
 # first run)
 TRAIN_PHASE_STEPS = 6
+# train dispatch: steps per window (one window per curriculum phase)
+DISPATCH_STEPS = TRAIN_PHASE_STEPS
+# graphed against eager, under deterministic algorithms (relative, per
+# metric, parameter, buffer or moment): the bound the card tests hold the
+# tiny model to (tests/test_torch_cuda.py, where both agree bit for bit)
+DISPATCH_REL_TOL = 1e-6
+# the agreement runs' schedule: warm-up over one curriculum phase, so each
+# step has its own lr (8.5e-5 up to 5.1e-4, then down to 3.6e-4) and a
+# learning rate or bias correction frozen into a graph shows
+DISPATCH_LR = dict(warmup_updates=TRAIN_PHASE_STEPS, lr=0.02)
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -1473,11 +1508,11 @@ def recipe_training(np, **overrides):
     batch and vocabulary size."""
     from stylesinger_torch.config import load_config
 
-    cfg = load_config(recipe="stylesinger", forcing=TRAIN_PHASE_STEPS,
-                      rq_start=TRAIN_PHASE_STEPS - 1,
-                      diff_start=TRAIN_PHASE_STEPS - 1, tb_log_interval=1,
-                      val_check_interval=2 * TRAIN_PHASE_STEPS,
-                      num_ckpt_keep=1, **overrides)
+    cfg = load_config(recipe="stylesinger", **{**dict(
+        forcing=TRAIN_PHASE_STEPS, rq_start=TRAIN_PHASE_STEPS - 1,
+        diff_start=TRAIN_PHASE_STEPS - 1, tb_log_interval=1,
+        val_check_interval=2 * TRAIN_PHASE_STEPS, num_ckpt_keep=1),
+        **overrides})
     vocab = 64
     batch = collated(cfg, synthetic_items(
         np, 8, (600, 1001), (60, 121), cfg["audio_num_mel_bins"], vocab,
@@ -1502,13 +1537,13 @@ def timed_fit(torch, cfg, batch, vocab, work):
     steps, first = [], {}
     train_step = tr.train_step
 
-    def timed_step(state, b, phase, c):
+    def timed_step(state, b, phase, c, **kw):
         if not first:
             first.update({k: v.detach().clone() for k, v in
                           state.model.state_dict().items()})
         torch.cuda.synchronize()
         tb = time.perf_counter()
-        m = train_step(state, b, phase, c)
+        m = train_step(state, b, phase, c, **kw)
         torch.cuda.synchronize()
         steps.append((phase, time.perf_counter() - tb, m))
         return m
@@ -1545,6 +1580,443 @@ def phase_times(np, steps):
     return per_phase, by_phase[steps[-1][0]][1:]
 
 
+def profile_busy(torch, fn, steps: int = 3):
+    """``steps`` calls of ``fn`` under ``torch.profiler``: (wall ms per
+    call on the host clock between synchronizes, the CUDA kernels' summed
+    durations per call in ms, kernels per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - tb) / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / steps / 1e3
+    return wall, busy, len(kernels) / steps
+
+
+def synced_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - tb)
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(1.0, abs(float(b)))
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms (a warning where an op has none,
+    one per call site); yields the list that collects those warnings."""
+    import warnings
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _nondeterministic_ops(caught) -> list:
+    """The op named at the head of each deterministic-mode warning."""
+    return sorted({str(w.message).split(" ")[0][:60] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def leaf_rel(a, b) -> float:
+    """max |a - b| over max |b| (1e-30 at least)."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def dispatch_fit(torch, np, dtype, n_steps, **overrides):
+    """``Trainer.fit`` of the ``train recipe`` run (its batch, curriculum
+    and ``overrides``) at ``steps_per_dispatch=6`` for ``n_steps``; the
+    trainer's scan is wrapped to keep each window's metrics and host time.
+    Returns the config, batch, state, scan (``scan.graphs``), windows as
+    (phase, ms, metrics on the host), the stacked epoch, and the peak
+    memory and the memory at the start in bytes."""
+    from types import SimpleNamespace
+
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import trainer as tr
+
+    cfg, batch, vocab = recipe_training(
+        np, compute_dtype=dtype, steps_per_dispatch=DISPATCH_STEPS,
+        tb_log_interval=DISPATCH_STEPS, prefetch_batches=0, **overrides)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix=".dispatch_",
+                                     dir=str(REPO)) as work:
+        trainer = tr.Trainer(StyleSinger(cfg, vocab), cfg, work)
+        scan, windows, seen = trainer.scan, [], {}
+
+        def recorded(state, stacked, order, phase):
+            tb = time.perf_counter()
+            m = scan(state, stacked, order, phase)
+            torch.cuda.synchronize()
+            windows.append((phase, 1e3 * (time.perf_counter() - tb),
+                            {k: v.cpu() for k, v in m.items()}))
+            seen["stacked"] = stacked
+            return m
+
+        trainer.scan = recorded
+        state = trainer.fit([batch], max_updates=n_steps)
+    torch.cuda.synchronize()
+    return SimpleNamespace(
+        cfg=cfg, batch=batch, vocab=vocab, state=state, scan=scan,
+        windows=windows, stacked=seen["stacked"],
+        peak=torch.cuda.max_memory_allocated(), start=start)
+
+
+def phase_train_dispatch(t0, torch, np, smi) -> None:
+    """``steps_per_dispatch`` at the recipe's full width, f32 then bf16,
+    under PyTorch's deterministic algorithms: ``Trainer.fit`` on the
+    ``train recipe`` batch and curriculum for 12 steps in two windows of
+    6 (one per curriculum phase; in each, the first step is eager and the
+    capture follows it, the other five are replays of the phase's CUDA
+    graph), against 12 eager ``train_step`` calls from the same seeded
+    weights on the same batch, twice.  The learning rate warms up over 6
+    steps (``DISPATCH_LR``), so each step has its own lr and bias
+    corrections.  Every loss and the grad norm of each step, each
+    parameter, RQ codebook buffer and Adam moment after the run, graphed
+    against eager, within ``DISPATCH_REL_TOL``; the two eager runs'
+    spread is printed beside it.  No kernel launches on this path.
+    Everything is released at the end: :func:`phase_dispatch_timing`
+    times the graphs on states of its own."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    n_steps = 2 * TRAIN_PHASE_STEPS
+    for dtype in ("float32", "bfloat16"):
+        for ctr in counters().values():
+            ctr.reset()
+        with deterministic(torch) as caught:
+            run = dispatch_fit(torch, np, dtype, n_steps, **DISPATCH_LR)
+            launches = {k: c.count for k, c in counters().items()}
+            cfg, graphed = run.cfg, run.state
+            b_dev = ts.batch_to_device(run.batch, "cuda")
+            eagers, e_metrics = [], []
+            for _ in range(2):
+                eager = ts.init_state(StyleSinger(cfg, run.vocab).cuda(),
+                                      cfg)
+                ms = []
+                for i in range(n_steps):
+                    m = ts.train_step(eager, b_dev,
+                                      ts.phase_for_step(i, cfg), cfg)
+                    ms.append({k: v.cpu() for k, v in m.items()})
+                eagers.append(eager)
+                e_metrics.append(ms)
+            torch.cuda.synchronize()
+        eager, again = eagers
+        g_metrics = [{k: v[j] for k, v in m.items()}
+                     for _, _, m in run.windows
+                     for j in range(len(next(iter(m.values()))))]
+
+        def metric_err(a, b, lo, hi):
+            return max(_rel(x[k], y[k]) for x, y in zip(a[lo:hi], b[lo:hi])
+                       for k in y)
+
+        def state_err(a, b, codebook):
+            bp = b.model.state_dict()
+            return max(leaf_rel(v, bp[k])
+                       for k, v in a.model.state_dict().items()
+                       if (".codebook_" in k) == codebook)
+
+        def moment_err(a, b):
+            return max(leaf_rel(x, y) for xs, ys in (
+                (a.opt.mu, b.opt.mu), (a.opt.nu, b.opt.nu))
+                for x, y in zip(xs, ys))
+
+        w = DISPATCH_STEPS
+        errs = {
+            "first_window_rel_err": (
+                metric_err(g_metrics, e_metrics[0], 0, w),
+                metric_err(e_metrics[1], e_metrics[0], 0, w)),
+            "second_window_rel_err": (
+                metric_err(g_metrics, e_metrics[0], w, n_steps),
+                metric_err(e_metrics[1], e_metrics[0], w, n_steps)),
+            "param_rel_err_after_12": (state_err(graphed, eager, False),
+                                       state_err(again, eager, False)),
+            "codebook_rel_err_after_12": (state_err(graphed, eager, True),
+                                          state_err(again, eager, True)),
+            "adam_moment_rel_err_after_12": (moment_err(graphed, eager),
+                                             moment_err(again, eager)),
+        }
+        same_keys = len(g_metrics) == n_steps and all(
+            set(g) == set(e) for g, e in zip(g_metrics, e_metrics[0]))
+        finite = all(np.isfinite(float(v)) for m in g_metrics
+                     for v in m.values())
+        counts = (graphed.step, graphed.opt.count, eager.step,
+                  eager.opt.count)
+        lrs = [graphed.opt.schedule(i) for i in range(n_steps)]
+        graphs = run.scan.graphs
+        say("train dispatch", t0, gpu=repr(smi), compute_dtype=dtype,
+            steps_per_dispatch=DISPATCH_STEPS,
+            windows=[len(next(iter(m.values()))) for _, _, m in run.windows],
+            captured=len(graphs.capture_seconds),
+            lr_first_last=f"{lrs[0]:.3e}/{lrs[-1]:.3e}",
+            **{k: f"{g:.2e}" for k, (g, _) in errs.items()},
+            **{k.replace("rel_err", "eager_twice_rel_err"): f"{e:.2e}"
+               for k, (_, e) in errs.items()},
+            tol=DISPATCH_REL_TOL, steps_and_counts=counts,
+            nondeterministic_ops=_nondeterministic_ops(caught),
+            launches=launches, timer="deterministic algorithms")
+        require(len(run.windows) == 2 and all(
+            len(next(iter(m.values()))) == DISPATCH_STEPS
+            for _, _, m in run.windows) and len(graphs.capture_seconds) == 2,
+            f"train dispatch {dtype}: not two windows of {DISPATCH_STEPS} "
+            "steps, each phase captured once")
+        require(counts == (n_steps,) * 4,
+                f"train dispatch {dtype}: steps and optimizer counts {counts}")
+        require(same_keys and finite,
+                f"train dispatch {dtype}: metrics differ in keys or are "
+                "not finite")
+        bad = {k: g for k, (g, _) in errs.items() if g > DISPATCH_REL_TOL}
+        require(not bad, f"train dispatch {dtype}: graphed against eager "
+                f"beyond {DISPATCH_REL_TOL} (relative): {bad}")
+        require(all(v == 0 for v in launches.values()),
+                f"train dispatch {dtype}: a kernel launched {launches}")
+        del run, graphed, graphs, eager, again, eagers, b_dev
+        torch.cuda.empty_cache()
+
+
+def vocoder_dispatch_setup(np, torch):
+    from stylesinger_torch.config import load_config
+
+    cfg = load_config()
+    items = harmonic_corpus(np, torch, cfg, 8, (128, 321), SEED)
+    return cfg, items, 16, 64  # batch, crop frames
+
+
+def recorded_vocoder_fit(torch, t0, cfg, items, n_iter, spd, batch, crop,
+                         label):
+    """``fit_vocoder(spd)`` for ``n_iter`` iterations with a scan of ours.
+    Returns (state, history, scan, the device corpus, wrapper counts)."""
+    from stylesinger_torch.training import vocoder_task as vt
+
+    scan, corpus = vt.make_vocoder_scan(cfg, lambda m: say(
+        label, t0, log=repr(m))), []
+
+    def recorded(state, data, *rest, **kw):
+        corpus.append(data)
+        return scan(state, data, *rest, **kw)
+
+    for ctr in counters().values():
+        ctr.reset()
+    with tempfile.TemporaryDirectory(prefix=".vocoder_dispatch_",
+                                     dir=str(REPO)) as work:
+        state, hist = vt.fit_vocoder(
+            cfg, items, n_iter, work, batch=batch, crop_frames=crop,
+            spd=spd, device="cuda", seed=SEED, scan=recorded,
+            log=lambda m: say(label, t0, log=repr(m)))
+    torch.cuda.synchronize()
+    return state, hist, scan, corpus[0], {
+        k: c.count for k, c in counters().items()}
+
+
+def _eager_gan_iteration(cfg, corpus, batch, crop):
+    from stylesinger_torch.training import vocoder_task as vt
+
+    disc_body, gen_body = vt.make_vocoder_bodies(cfg)
+
+    def iteration(st):
+        n = st.step
+        b = vt.device_crops(corpus, vt.vocoder_noise(SEED, n, "cuda", "crop"),
+                            crop, batch, cfg["hop_size"])
+        m = disc_body(st, b, vt.vocoder_noise(SEED, n, "cuda", "noise"))
+        m.update(gen_body(st, b, vt.vocoder_noise(SEED, n, "cuda", "noise")))
+        return m
+    return iteration
+
+
+def phase_vocoder_gan_dispatch(t0, torch, np, smi) -> None:
+    """``fit_vocoder(spd=10)`` at the flagship vocoder's width
+    (``load_config()``, f32) on 16 x 64-frame crops of the ``vocoder gan``
+    corpus, under PyTorch's deterministic algorithms: one window of 10
+    iterations, the first eager and the other 9 replays of one CUDA graph
+    (the crops, the discriminator step with the MRF kernel in its
+    generator pass, the generator step), against the same 10 iterations
+    run eagerly from the same seeded state, twice: every loss of each
+    iteration and each parameter after them within ``DISPATCH_REL_TOL``.
+    The MRF wrapper counts 27 launches in the eager iteration and 27 in
+    the capture; the replays' launches are counted by
+    :func:`phase_dispatch_timing` from a profile."""
+    from stylesinger_torch.training import vocoder_task as vt
+
+    cfg, items, batch, crop = vocoder_dispatch_setup(np, torch)
+    n_iter = 10
+    with deterministic(torch) as caught:
+        state, hist, scan, corpus, launches = recorded_vocoder_fit(
+            torch, t0, cfg, items, n_iter, n_iter, batch, crop,
+            "vocoder gan dispatch")
+        iteration = _eager_gan_iteration(cfg, corpus, batch, crop)
+        eager, again = (vt.init_vocoder_state(cfg, SEED, "cuda")
+                        for _ in range(2))
+        ref, ref2 = ([{k: v.cpu() for k, v in iteration(st).items()}
+                      for _ in range(n_iter)] for st in (eager, again))
+        torch.cuda.synchronize()
+    loss_err = max(_rel(h[k], r[k]) for h, r in zip(hist, ref) for k in r)
+    loss_err2 = max(_rel(h[k], r[k]) for h, r in zip(ref2, ref) for k in r)
+    named = lambda st: {**dict(st.gen.named_parameters()),  # noqa: E731
+                        **st.named_disc_params()}
+    e_named = named(eager)
+    param_err = max(leaf_rel(p.detach(), e_named[k].detach())
+                    for k, p in named(state).items())
+    param_err2 = max(leaf_rel(p.detach(), e_named[k].detach())
+                     for k, p in named(again).items())
+    graphs = scan.graphs
+    say("vocoder gan dispatch", t0, gpu=repr(smi), spd=n_iter, batch=batch,
+        crop_frames=crop, iterations=len(hist),
+        captured=len(graphs.capture_seconds),
+        loss_rel_err=f"{loss_err:.2e}",
+        loss_eager_twice_rel_err=f"{loss_err2:.2e}",
+        param_rel_err=f"{param_err:.2e}",
+        param_eager_twice_rel_err=f"{param_err2:.2e}",
+        tol=DISPATCH_REL_TOL, lr=cfg["vocoder_lr"],
+        mrf_wrapper_launches_fit=launches["fused_mrf_blocks"],
+        nondeterministic_ops=_nondeterministic_ops(caught),
+        timer="deterministic algorithms")
+    require(len(hist) == n_iter and state.step == n_iter and
+            len(graphs.capture_seconds) == 1,
+            "vocoder gan dispatch: not one graph over the iterations")
+    require(launches["fused_mrf_blocks"] == 2 * 27,
+            f"vocoder gan dispatch: the MRF wrapper counted {launches} in "
+            "the fit (27 eager, 27 recorded into the graph)")
+    require(launches["mel_spectrogram"] == 0,
+            "vocoder gan dispatch: the mel kernel ran on the training path")
+    require(loss_err <= DISPATCH_REL_TOL and param_err <= DISPATCH_REL_TOL,
+            f"vocoder gan dispatch: graphed against eager iterations differ "
+            f"by {loss_err:.2e} in the losses, {param_err:.2e} in the "
+            f"parameters (relative; tolerance {DISPATCH_REL_TOL})")
+
+
+def phase_dispatch_timing(t0, torch, np, smi) -> None:
+    """The graphs' speed, on states of their own, after ``phase_device``
+    (a profiler session that ran before the later phases left
+    ``phase_device``'s own session without device events).  Per dtype: a
+    ``Trainer.fit`` of the recipe at ``steps_per_dispatch=6`` to step 8
+    (both curriculum phases captured), then warm ms per step graphed and
+    eager in turns (5 each; the eager state has taken one step), the
+    capture time per phase, the peak memory, and the device's busy time
+    and idle share of 3 graphed and 3 eager steps (torch.profiler).  Then
+    the GAN: ``fit_vocoder(spd=3)`` for 3 iterations (one eager, a
+    capture, 2 replays), ms per iteration graphed and eager in turns, and
+    the MRF kernels torch.profiler sees in 2 replays (27 each; the
+    wrapper's count does not move)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+    from stylesinger_torch.training import vocoder_task as vt
+
+    for dtype in ("float32", "bfloat16"):
+        for ctr in counters().values():
+            ctr.reset()
+        run = dispatch_fit(torch, np, dtype, DISPATCH_STEPS + 2)
+        cfg, graphed, scan, stacked = run.cfg, run.state, run.scan, \
+            run.stacked
+        last = ts.phase_for_step(DISPATCH_STEPS, cfg)
+        b_dev = ts.batch_to_device(run.batch, "cuda")
+        eager = ts.init_state(StyleSinger(cfg, run.vocab).cuda(), cfg)
+        ts.train_step(eager, b_dev, last, cfg)
+        g_ms, e_ms = [], []
+        for _ in range(5):  # in turns, one process
+            e_ms.append(synced_ms(torch, lambda: ts.train_step(
+                eager, b_dev, last, cfg)))
+            g_ms.append(synced_ms(torch, lambda: scan(
+                graphed, stacked, [0], last)))
+        g_wall, g_busy, g_kernels = profile_busy(
+            torch, lambda: scan(graphed, stacked, [0], last))
+        e_wall, e_busy, e_kernels = profile_busy(
+            torch, lambda: ts.train_step(eager, b_dev, last, cfg))
+        launches = {k: c.count for k, c in counters().items()}
+        graphs = scan.graphs
+        say("train dispatch timing", t0, gpu=repr(smi), compute_dtype=dtype,
+            steps_per_dispatch=DISPATCH_STEPS,
+            windows=[(len(next(iter(m.values()))), round(ms, 1))
+                     for _, ms, m in run.windows],
+            capture_s={"/".join(k for k, v in key[0]._asdict().items()
+                                if v) or "none": f"{s:.2f}"
+                       for key, s in graphs.capture_seconds.items()},
+            draws_per_replay=sorted(set(graphs.draws().values())),
+            graphed_warm_ms=[round(v, 1) for v in g_ms],
+            eager_warm_ms=[round(v, 1) for v in e_ms],
+            graphed_median_ms=f"{np.median(g_ms):.1f}",
+            eager_median_ms=f"{np.median(e_ms):.1f}",
+            peak_mem_gib=f"{run.peak / 2 ** 30:.2f}",
+            peak_over_start_gib=f"{(run.peak - run.start) / 2 ** 30:.3f}",
+            graphed_profiled_ms=f"{g_wall:.1f}",
+            graphed_device_busy_ms=f"{g_busy:.1f}",
+            graphed_idle_share=f"{1 - g_busy / g_wall:.3f}",
+            graphed_kernels_per_step=round(g_kernels),
+            eager_profiled_ms=f"{e_wall:.1f}",
+            eager_device_busy_ms=f"{e_busy:.1f}",
+            eager_idle_share=f"{1 - e_busy / e_wall:.3f}",
+            eager_kernels_per_step=round(e_kernels), launches=launches,
+            timer="host clock, cuda.synchronize; torch.profiler")
+        require(len(graphs.capture_seconds) == 2 and
+                graphed.step == DISPATCH_STEPS + 2 + 5 + 3,
+                f"train dispatch timing {dtype}: not both phases captured, "
+                f"or step {graphed.step}")
+        require(g_busy > 0 and e_busy > 0,
+                f"train dispatch timing {dtype}: the profiler saw no device "
+                "time")
+        require(all(v == 0 for v in launches.values()),
+                f"train dispatch timing {dtype}: a kernel launched "
+                f"{launches}")
+        del run, graphed, scan, stacked, graphs, eager, b_dev
+        torch.cuda.empty_cache()
+
+    cfg, items, batch, crop = vocoder_dispatch_setup(np, torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, scan, corpus, _ = recorded_vocoder_fit(
+        torch, t0, cfg, items, 3, 3, batch, crop, "vocoder gan timing")
+    peak = torch.cuda.max_memory_allocated()
+    iteration = _eager_gan_iteration(cfg, corpus, batch, crop)
+    eager = vt.init_vocoder_state(cfg, SEED, "cuda")
+    iteration(eager)
+    g_ms, e_ms = [], []
+    for _ in range(5):
+        e_ms.append(synced_ms(torch, lambda: iteration(eager)))
+        g_ms.append(synced_ms(torch, lambda: scan(state, corpus, SEED, 1,
+                                                  crop, batch)))
+    mrf = counters()["fused_mrf_blocks"]
+    before = mrf.count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan(state, corpus, SEED, 2, crop, batch)
+        torch.cuda.synchronize()
+    replayed = sum("mrf_step_kernel" in e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 2
+    say("vocoder gan timing", t0, gpu=repr(smi), batch=batch,
+        crop_frames=crop, graphed_ms=[round(v, 1) for v in g_ms],
+        eager_ms=[round(v, 1) for v in e_ms],
+        graphed_median_ms=f"{np.median(g_ms):.1f}",
+        eager_median_ms=f"{np.median(e_ms):.1f}",
+        mrf_kernels_per_replay=replayed,
+        mrf_wrapper_count_over_replays=mrf.count - before,
+        peak_mem_gib=f"{peak / 2 ** 30:.2f}",
+        timer="host clock, cuda.synchronize; torch.profiler")
+    require(replayed == 27 and mrf.count == before,
+            f"vocoder gan timing: {replayed} MRF kernels per replay in the "
+            f"profile (27), the wrapper counted {mrf.count - before} (0)")
+
+
 def _gan_check(torch, np, cpu, gpu, grads, lr):
     """Gradients and updated parameters of one GAN iteration, the card
     against the CPU: the worst gradient error over its tolerance (2e-3
@@ -1574,9 +2046,9 @@ def _gan_check(torch, np, cpu, gpu, grads, lr):
 def _recording_opt(opt, seen, side):
     step = opt.step
 
-    def rec(params, g):
+    def rec(params, g, *rest):
         seen[side] = [x.detach().cpu().clone() for x in g]
-        step(params, g)
+        step(params, g, *rest)
     opt.step = rec
 
 
@@ -1731,8 +2203,8 @@ def phase_vocoder_gan(t0, torch, np, root: Path) -> Path:
         gen_step, disc_step = make_steps(cfg, seed)
         return timed("gen", gen_step), timed("disc", disc_step)
 
-    def timed_scan(cfg):
-        return timed("scan", make_scan(cfg))
+    def timed_scan(cfg, *args):
+        return timed("scan", make_scan(cfg, *args))
 
     def say_fit(msg):
         say("vocoder gan fit", t0, log=repr(msg))
@@ -3116,10 +3588,12 @@ def main() -> int:
             root = Path(tmp)
             train = phase_train_recipe(t0, torch, np, root)
             phase_train_bf16(t0, torch, np, root, train)
+            phase_train_dispatch(t0, torch, np, smi)
             phase_settings(t0, torch, np)
             phase_data_parallel(t0, torch, np, root)
             phase_vocoder_gan_small(t0, torch, np)
             generator = phase_vocoder_gan(t0, torch, np, root)
+            phase_vocoder_gan_dispatch(t0, torch, np, smi)
             inputs = serve_inputs(torch, np, root, train, generator, wav_np)
             phase_checkpoint_infer(t0, torch, np, train, inputs, wav_np)
             phase_test_split(t0, torch, np, train, inputs)
@@ -3133,10 +3607,11 @@ def main() -> int:
             phase_convert_cli(t0, torch, np, root, wav_np)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
+        phase_dispatch_timing(t0, torch, np, smi)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    for k in kernels:
+    for k in kernels:  # the requests' launches
         k["launches"] = launches[k["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

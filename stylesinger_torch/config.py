@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``config.py``: the keys of ``DEFAULTS`` that the
 ported modules read (model, training, data), ``apply_spec_stats`` and
-``tiny_test_config``, and ``READ_WITH_GET`` / ``READ_WITH_GET_DATA``, the
-keys that the JAX package's vocoder task, dataset and data CLI read with
-``cfg.get``.
+``tiny_test_config``, and ``READ_WITH_GET`` / ``READ_WITH_GET_TRAINER`` /
+``READ_WITH_GET_DATA``, the keys that the JAX package's vocoder task,
+dataset, trainer and data CLI read with ``cfg.get``.
 
 Recipe files: ``load_config(path, overrides, recipe=None, **kwargs)`` is
 the defaults <- the YAML file ``path`` with its ``base_config`` cascade
@@ -217,11 +217,21 @@ DEFAULTS: Dict[str, Any] = dict(
     # --- training loop and checkpoints ---
     max_updates=320000,
     val_check_interval=5000,
+    valid_infer_interval=5000,
     tb_log_interval=100,
     num_ckpt_keep=3,
     save_best=True,
     milestone_interval=0,
     load_ckpt="",
+    # host-RSS watchdog: 0 = auto, which arms only on a remote-PJRT backend
+    # in the JAX package and so never in the port; -1 = off; > 0 = a GB
+    # ceiling, at which the trainer checkpoints and raises
+    # HostMemoryExceeded (run.py train exits 75, --supervise restarts)
+    max_host_rss_gb=0.0,
+    # > 1: windows of up to this many steps over a device-resident epoch
+    # (training/trainer.py), each step replayed as a CUDA graph on the card
+    steps_per_dispatch=1,
+    device_data_budget_mb=1024,
     # --- data and work dirs ---
     binary_data_dir="data/binary/style",
     # raw corpus -> processed metadata.json (run.py preprocess): a
@@ -279,6 +289,18 @@ READ_WITH_GET: Dict[str, Any] = dict(
     lambda_mel=45.0,
     lambda_ms_stft=0.0,
     test_ids=None,
+)
+
+
+# Keys the JAX package's config does not hold and its trainer reads with
+# ``cfg.get`` and these defaults (``training/trainer.py:322-324,393-413``):
+# NaN trapping and the profiled window.  ``prefetch_batches`` is read the
+# same way, with a default that depends on the host (2 with more than one
+# CPU core, else 0: ``trainer.py:368``), so it has no entry here.
+READ_WITH_GET_TRAINER: Dict[str, Any] = dict(
+    debug_nans=False,
+    profile_step=-1,
+    profile_n_steps=5,
 )
 
 
@@ -371,14 +393,15 @@ def apply_overrides(cfg: Config, overrides: str) -> Config:
 
 def load_config(path: Optional[str] = None, overrides: str = "",
                 recipe: Optional[str] = None, **kwargs: Any) -> Config:
-    """Defaults (``DEFAULTS``, ``READ_WITH_GET``, ``READ_WITH_GET_DATA``)
+    """Defaults (``DEFAULTS`` and the ``READ_WITH_GET*`` maps)
     <- the YAML cascade of ``path`` <- the ``overrides`` string <- keyword
     overrides.  The config defaults are ``load_config()``; the repo's recipe
     is ``load_config("egs/stylesinger.yaml")``, or
     ``load_config(recipe="stylesinger")`` (a recipe name in place of its
     path)."""
     cfg = Config(json.loads(json.dumps(
-        {**DEFAULTS, **READ_WITH_GET, **READ_WITH_GET_DATA})))
+        {**DEFAULTS, **READ_WITH_GET, **READ_WITH_GET_TRAINER,
+          **READ_WITH_GET_DATA})))
     if recipe is not None:
         if path is not None:
             raise ValueError("load_config: a path or a recipe, not both")

@@ -34,30 +34,52 @@ _FIELDS = (
 
 class Noise:
     """Standard-normal, uniform, integer and Bernoulli draws from a seeded
-    ``torch.Generator`` on ``device``."""
+    ``torch.Generator`` on ``device``.  Each method can draw into ``out``
+    (a tensor of the draw's shape and dtype), as a captured step's static
+    buffers take them (``training/graphs.py``); the values are the same."""
 
     def __init__(self, seed: int, device: Union[str, torch.device]):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
-    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+    @staticmethod
+    def _out(out: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        if tuple(out.shape) != tuple(shape):
+            raise ValueError(f"Noise: out is {tuple(out.shape)}, the draw "
+                             f"{tuple(shape)}")
+        return out
+
+    def normal(self, shape: Sequence[int],
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if out is not None:
+            return self._out(out, shape).normal_(generator=self.generator)
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.device)
 
-    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+    def uniform(self, shape: Sequence[int],
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if out is not None:
+            return self._out(out, shape).uniform_(generator=self.generator)
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device)
 
-    def randint(self, shape: Sequence[int], low: int,
-                high: int) -> torch.Tensor:
+    def randint(self, shape: Sequence[int], low: int, high: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Integers in [low, high), as ``jax.random.randint``."""
+        if out is not None:
+            return self._out(out, shape).random_(low, high,
+                                                 generator=self.generator)
         return torch.randint(low, high, tuple(shape), generator=self.generator,
                              device=self.device)
 
-    def bernoulli(self, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
+    def bernoulli(self, p: float, shape: Sequence[int] = (),
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A bool mask, True with probability ``p`` (``jax.random.bernoulli``
         is ``uniform < p`` too)."""
+        if out is not None:
+            return torch.lt(self.uniform(shape), p,
+                            out=self._out(out, shape))
         return self.uniform(shape) < p
 
 

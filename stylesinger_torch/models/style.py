@@ -64,7 +64,7 @@ class CrossAttenLayer(nn.Module):
         if forcing:
             b, tq = src.shape[:2]
             attn = monotonic_band_attention(tq, style.shape[1], src.device)
-            attn = attn[None].expand(b, -1, -1)
+            attn = attn[None].expand(b, -1, -1).to(style.dtype)
             src2 = attn @ style
         else:
             src2, attn = self.mha(src, style, style_nonpadding, drop)

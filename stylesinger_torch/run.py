@@ -10,7 +10,8 @@ stylesinger_tpu.run``.
         [--device cuda]
     python -m stylesinger_torch.run train [--config egs/stylesinger.yaml] \\
         [--hparams 'binary_data_dir=data/binary/style,max_updates=1000'] \\
-        [--exp_name stylesinger] [--work_dir_root checkpoints] [--device cuda]
+        [--exp_name stylesinger] [--work_dir_root checkpoints] \\
+        [--device cuda] [--supervise]
     torchrun --nproc_per_node N -m stylesinger_torch.run train \\
         --config egs/stylesinger.yaml [...]
     python -m stylesinger_torch.run infer --ref_audio ref.wav \\
@@ -45,7 +46,11 @@ encoders run on ``--device``.
 ``binary_data_dir`` (its ``phone_set.json`` and the train and valid
 shards) into the work dir, where it writes ``config.yaml``,
 ``metrics.jsonl`` and the checkpoints, and from whose latest checkpoint it
-resumes.  Started by ``torchrun`` (its ``RANK`` / ``WORLD_SIZE`` /
+resumes.  When the host-RSS watchdog (``max_host_rss_gb``) trips, the
+trainer checkpoints and ``train`` exits with :data:`RESTART_EXIT_CODE`
+(75); ``--supervise`` runs ``train`` in a child process and restarts it
+while it exits so, each restart resuming from the checkpoint.  Started
+by ``torchrun`` (its ``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``), it trains data
 parallel, one process per GPU (``parallel/mesh.py``): each rank takes its
 share of each epoch's batches, a step is one step on the ranks' batches
@@ -79,6 +84,9 @@ import os
 import sys
 from typing import Optional, Sequence
 
+# the exit status of "checkpointed and restartable" (EX_TEMPFAIL): the
+# host-RSS watchdog's (training/trainer.py::HostMemoryExceeded)
+RESTART_EXIT_CODE = 75
 EXAMPLE = {
     "text": "小酒窝长睫毛AP是你最美的记号",
     "ph": "x iao j iu w o ch ang j ie m ao AP sh i n i z ui m ei d e j i h ao",
@@ -91,6 +99,23 @@ EXAMPLE = {
     "note_types": [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2,
                    2, 2, 2, 2, 2, 2, 2, 2, 2],
 }
+
+
+def supervise(cmd: list, max_restarts: int = 100) -> int:
+    """Run ``cmd`` as a subprocess, restarting it while it exits with
+    :data:`RESTART_EXIT_CODE`; returns the last exit status.  With the
+    trainer's resume from the latest checkpoint this makes the watchdog's
+    exit a restart with bounded host memory."""
+    import subprocess
+
+    for i in range(max_restarts):
+        code = subprocess.call(cmd)
+        if code != RESTART_EXIT_CODE:
+            return code
+        print(f"| supervise: restart {i + 1} (exit {code}: watchdog "
+              "checkpointed; resuming)")
+    print(f"| supervise: giving up after {max_restarts} restarts")
+    return RESTART_EXIT_CODE
 
 
 def example_run(cfg, ref_audio: str, out_path: str = "infer_out/test.wav",
@@ -282,7 +307,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "corpus")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
+    ap.add_argument("--supervise", action="store_true",
+                    help="train only: restart and resume when the host-RSS "
+                    "watchdog checkpoints and exits (code 75)")
     args = ap.parse_args(argv)
+    if args.supervise and args.command == "train":
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return supervise([sys.executable, "-m", "stylesinger_torch.run"] +
+                         [a for a in argv if a != "--supervise"])
 
     from stylesinger_torch.config import load_config
 
@@ -302,7 +334,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"| wrote {cfg['binary_data_dir']}")
         return 0
     if args.command == "train":
-        state = train(cfg, work_dir, device=args.device)
+        from stylesinger_torch.training.trainer import HostMemoryExceeded
+
+        try:
+            state = train(cfg, work_dir, device=args.device)
+        except HostMemoryExceeded as e:
+            print(f"| {e}")
+            print("| host-RSS watchdog checkpointed and is exiting 75 "
+                  "(restartable, NOT a crash) — rerun with --supervise to "
+                  "restart-and-resume automatically")
+            return RESTART_EXIT_CODE
         print(f"| trained to step {state.step}; checkpoints in {work_dir}")
         return 0
     if args.command == "infer" and args.ref_audio is None:

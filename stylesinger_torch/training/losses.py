@@ -21,6 +21,7 @@ ranks in one collective.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -250,6 +251,17 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return x[..., torch.where(i < t, i, 2 * (t - 1) - i)]
 
 
+@functools.lru_cache(maxsize=16)
+def _stft_window(fft_size: int, win_length: int,
+                 device: torch.device) -> torch.Tensor:
+    """A periodic Hann of ``win_length`` centred in ``fft_size``, made once
+    per device (a CUDA graph of a step cannot copy it from the host)."""
+    lpad = (fft_size - win_length) // 2
+    return torch.nn.functional.pad(
+        torch.as_tensor(_hann_periodic(win_length), device=device),
+        (lpad, fft_size - win_length - lpad))
+
+
 def _stft_mag_torchlike(x: torch.Tensor, fft_size: int, hop_size: int,
                         win_length: int) -> torch.Tensor:
     """|STFT| as ``torch.stft(center=True)`` frames it (reflect padding, a
@@ -257,10 +269,7 @@ def _stft_mag_torchlike(x: torch.Tensor, fft_size: int, hop_size: int,
     1e-7 in power."""
     xp = reflect_pad(x, fft_size // 2)
     frames = xp.unfold(-1, fft_size, hop_size)
-    lpad = (fft_size - win_length) // 2
-    window = torch.nn.functional.pad(
-        torch.as_tensor(_hann_periodic(win_length), device=x.device),
-        (lpad, fft_size - win_length - lpad))
+    window = _stft_window(fft_size, win_length, x.device)
     mag = torch.fft.rfft(frames * window, n=fft_size, dim=-1).abs()
     return torch.sqrt(torch.clamp_min(mag * mag, 1e-7))
 

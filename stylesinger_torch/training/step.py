@@ -18,13 +18,18 @@
 - under a process group (``parallel/mesh.py``) a step is one optimizer
   step on the global batch: the batches are padded to a common bucket, the
   draws, loss denominators, RQ statistics and UMLN batch std are the
-  global batch's, and the gradients and losses are summed over the ranks.
+  global batch's, and the gradients and losses are summed over the ranks;
+- :func:`make_train_scan` runs the steps of a window over a
+  device-resident epoch, each a CUDA graph replay on the card
+  (``training/graphs.py``), JAX's multi-step dispatch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Union
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Union,
+)
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ import torch.nn as nn
 from stylesinger_torch.models import precision
 from stylesinger_torch.models.diffusion import Noise
 from stylesinger_torch.parallel import mesh
+from stylesinger_torch.training.graphs import GraphedSteps, stack_steps
 from stylesinger_torch.training.losses import batch_sums, compute_losses
 from stylesinger_torch.training.schedules import make_schedule
 
@@ -110,15 +116,16 @@ def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(losses[k] for k in sorted(losses))
 
 
-def adam_moments(mu: List[torch.Tensor], nu: List[torch.Tensor],
-                 grads: List[torch.Tensor], b1: float, b2: float):
-    """optax's moment updates: (1 - b) * g + b * m, and the same of g^2."""
-    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                            torch._foreach_mul(mu, b1))
-    nu = torch._foreach_add(
-        torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-        torch._foreach_mul(nu, b2))
-    return mu, nu
+def adam_moments_(mu: List[torch.Tensor], nu: List[torch.Tensor],
+                  grads: List[torch.Tensor], b1: float, b2: float) -> None:
+    """optax's moment updates in place: (1 - b) * g + b * m, and the same of
+    g^2 (in place, so that a captured step keeps updating the same
+    tensors)."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - b2))
 
 
 def bias_corrections(count: int, b1: float, b2: float):
@@ -127,23 +134,54 @@ def bias_corrections(count: int, b1: float, b2: float):
             float(1 - np.float32(b2) ** np.float32(count)))
 
 
-def adam_direction(mu, nu, count: int, b1: float, b2: float, eps: float):
+Scalar = Union[float, torch.Tensor]
+
+
+def adam_direction(mu, nu, c1: Scalar, c2: Scalar, eps: float):
     """optax ``scale_by_adam`` (eps_root 0): mu_hat / (sqrt(nu_hat) + eps),
-    ``count`` the count after this update."""
-    c1, c2 = bias_corrections(count, b1, b2)
+    with the bias corrections ``c1``, ``c2`` of the count after this
+    update (:func:`bias_corrections`; Python floats, or 0-dim device
+    tensors holding them)."""
     return torch._foreach_div(
         torch._foreach_div(mu, c1),
         torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, c2)),
                            eps))
 
 
-def apply_update_(params, upd, lr: float, weight_decay: float = 0.0) -> None:
+def apply_update_(params, upd, lr: Scalar, weight_decay: float = 0.0) -> None:
     """params -= lr * (upd + weight_decay * params), in place (optax
     ``add_decayed_weights`` then ``scale_by_learning_rate``)."""
     if weight_decay:
         upd = torch._foreach_add(upd, torch._foreach_mul(list(params),
                                                          weight_decay))
     torch._foreach_add_(list(params), torch._foreach_mul(upd, -lr))
+
+
+def write_scalars(buffer: torch.Tensor, values) -> torch.Tensor:
+    """Host scalars into a buffer on the device, one fill each (a kernel
+    argument, no copy from host memory, so no wait for the device).
+    Returns the buffer."""
+    for i, v in enumerate(values):
+        buffer[i].fill_(v)
+    return buffer
+
+
+class DeviceScalars:
+    """An optimizer's host scalars as a tensor on its parameters' device.
+    Every update takes them from such a tensor (a 0-dim device tensor in a
+    ``_foreach`` op does not round as a Python float does on the card), so
+    an eager step and a CUDA graph of it, which reads a buffer written
+    before each replay, compute the same."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._buf: Optional[torch.Tensor] = None
+
+    def write(self, values, device: torch.device) -> torch.Tensor:
+        """A buffer of its own holding ``values`` (for an eager step)."""
+        if self._buf is None or self._buf.device != device:
+            self._buf = torch.empty(self.n, device=device)
+        return write_scalars(self._buf, values)
 
 
 class Optimizer:
@@ -156,7 +194,12 @@ class Optimizer:
     - with k > 1 the gradients are averaged over k calls and the inner
       update is applied at every k-th call.
 
-    A parameter without a gradient counts as a zero gradient."""
+    A parameter without a gradient counts as a zero gradient.  The moments
+    and the accumulated gradients are updated in place.  The host scalars
+    of an update (:meth:`scalars`) reach the device as a tensor
+    (:class:`DeviceScalars`), or in a buffer the caller writes, which a
+    CUDA graph of the step reads (``training/graphs.py``); the branch on
+    the accumulation micro-step stays on the host (:meth:`graph_key`)."""
 
     def __init__(self, named_params: Dict[str, nn.Parameter], cfg: Any):
         self.names = list(named_params)
@@ -174,43 +217,56 @@ class Optimizer:
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in params] if self.k > 1 \
             else None
+        self._scalars = DeviceScalars(3)
+
+    def scalars(self) -> tuple:
+        """(learning rate, c1, c2) of the update that takes the count to
+        count + 1, as Python floats."""
+        return (self.schedule(self.count),) + bias_corrections(
+            self.count + 1, self.b1, self.b2)
+
+    def graph_key(self) -> tuple:
+        """What the next call branches on on the host."""
+        return (self.mini_step,)
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor],
-             grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+             grads: List[Optional[torch.Tensor]],
+             scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Updates ``params`` in place; returns the gradients' global norm
-        (before clipping)."""
+        (before clipping).  ``scalars``: a [3] device buffer holding
+        :meth:`scalars`, written by the caller (a captured step); None:
+        written here."""
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         g_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.k > 1:
-            self.acc = torch._foreach_add(self.acc, torch._foreach_div(
+            torch._foreach_add_(self.acc, torch._foreach_div(
                 torch._foreach_sub(grads, self.acc), self.mini_step + 1))
             self.mini_step = (self.mini_step + 1) % self.k
             if self.mini_step != 0:
                 return g_norm
-            grads = self.acc
-            self.acc = [torch.zeros_like(p) for p in params]
             norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+                torch.stack(torch._foreach_norm(self.acc)))
+            self._adamw(params, self.acc, norm, scalars)
+            torch._foreach_zero_(self.acc)
         else:
-            norm = g_norm
-        self._adamw(params, grads, norm)
+            self._adamw(params, grads, g_norm, scalars)
         return g_norm
 
-    def _adamw(self, params, grads, norm):
+    def _adamw(self, params, grads, norm, scalars):
         keep = norm < self.clip
         one = torch.ones_like(norm)
         grads = torch._foreach_mul(
             torch._foreach_div(grads, torch.where(keep, one, norm)),
             torch.where(keep, one, torch.full_like(norm, self.clip)))
-        lr = self.schedule(self.count)
+        if scalars is None:
+            scalars = self._scalars.write(self.scalars(), norm.device)
+        lr, c1, c2 = scalars.unbind()
         self.count += 1
-        self.mu, self.nu = adam_moments(self.mu, self.nu, grads, self.b1,
-                                        self.b2)
-        upd = adam_direction(self.mu, self.nu, self.count, self.b1, self.b2,
-                             self.eps)
+        adam_moments_(self.mu, self.nu, grads, self.b1, self.b2)
+        upd = adam_direction(self.mu, self.nu, c1, c2, self.eps)
         apply_update_(params, upd, lr, self.weight_decay)
 
     def state_dict(self) -> Dict[str, Any]:
@@ -267,14 +323,17 @@ def init_state(model: nn.Module, cfg: Any,
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                phase: Phase, cfg: Any,
-               noise: Optional[Dict[str, Any]] = None
+               noise: Optional[Dict[str, Any]] = None,
+               scalars: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on a batch of tensors on the model's device
     (:func:`batch_to_device`); under a process group, on the global batch
     of which ``batch`` is this rank's part.  ``noise`` replaces the step's
     own sources (:func:`step_noise`; the global batch's draws); a
-    ``dropout`` entry of None turns dropout off.  Returns the losses,
-    ``total_loss`` and ``grad_norm`` (detached; global)."""
+    ``dropout`` entry of None turns dropout off.  ``scalars``: the
+    optimizer's host scalars in a device buffer (``Optimizer.step``).
+    Returns the losses, ``total_loss`` and ``grad_norm`` (detached;
+    global)."""
     model = state.model
     if noise is None:
         noise = step_noise(cfg["seed"], state.step, state.device)
@@ -298,7 +357,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         total.backward()
     if shard is not None:
         mesh.all_reduce_grads(params)
-    grad_norm = state.opt.step(params, [p.grad for p in params])
+    grad_norm = state.opt.step(params, [p.grad for p in params], scalars)
     state.step += 1
     keys = sorted(losses)
     values = torch.stack([losses[k].detach() for k in keys])
@@ -308,6 +367,69 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     metrics["total_loss"] = total_loss(metrics)
     metrics["grad_norm"] = grad_norm
     return metrics
+
+
+def make_train_scan(cfg: Any,
+                    noise_fn: Optional[Callable[[int], Dict[str, Any]]] = None,
+                    log: Callable[[str], None] = print) -> "TrainScan":
+    """Multi-step dispatch (JAX's ``make_train_scan``): returns a
+    :class:`TrainScan`, ``scan(state, stacked, order, phase) -> metrics``,
+    each a [W] vector on the device, for the W steps of a window.
+
+    ``stacked`` is the device-resident epoch (``Trainer._stack_batches``:
+    each field with a leading batch-index axis, every batch padded to one
+    shape); step ``j`` of the window trains on batch ``order[j]``, gathered
+    by ``index_select`` inside the step, with the draws of its global step
+    (``step_noise``, or ``noise_fn(step)``), so the stream continues across
+    windows and resumes.  Every step of a window runs under ``phase``.
+
+    On the card each step is a replay of a CUDA graph of
+    :func:`train_step` at the epoch's one shape, one graph per (phase,
+    accumulation micro-step); the first step of each is a real eager step,
+    which the capture follows (``training/graphs.py``; ``scan.graphs``).
+    On the CPU each step runs eagerly through the same code.  Refuses a process group: the
+    batch index and the epoch are this process's own."""
+    return TrainScan(cfg, noise_fn, log)
+
+
+class TrainScan:
+    """:func:`make_train_scan`'s windows; ``graphs`` holds the graphs of
+    the last (state, epoch) it ran on."""
+
+    def __init__(self, cfg: Any,
+                 noise_fn: Optional[Callable[[int], Dict[str, Any]]] = None,
+                 log: Callable[[str], None] = print):
+        self.cfg, self.noise_fn = cfg, noise_fn
+        self.graphs = GraphedSteps(
+            lambda st: ((st, "step"), (st.opt, "count"),
+                        (st.opt, "mini_step")), log)
+
+    def __call__(self, state: TrainState, stacked: Dict[str, torch.Tensor],
+                 order: Sequence[int], phase: Phase
+                 ) -> Dict[str, torch.Tensor]:
+        if mesh.distributed():
+            raise ValueError("steps_per_dispatch > 1 under a process group")
+        cfg, graphs = self.cfg, self.graphs
+        graphs.bind(state, stacked)
+        idx = graphs.buffer("index", (1,), torch.long)
+        scalars = graphs.buffer("scalars", (3,))
+
+        def body(noise):
+            batch = {k: v.index_select(0, idx)[0] for k, v in stacked.items()}
+            return train_step(state, batch, phase, cfg, noise=noise,
+                              scalars=scalars)
+
+        def steps():
+            for j in order:
+                idx.fill_(int(j))
+                write_scalars(scalars, state.opt.scalars())
+                sources = self.noise_fn(state.step) if self.noise_fn \
+                    is not None else step_noise(cfg["seed"], state.step,
+                                                state.device)
+                yield graphs.run((phase, state.opt.graph_key()), body,
+                                 sources)
+
+        return stack_steps(steps())
 
 
 @torch.no_grad()

@@ -15,8 +15,9 @@ of the training loop of ``tools/validate_vocoder.py``).
   noise, as JAX gives both the same key; the on-device crops draw from
   (seed, n, "crop");
 - :func:`make_vocoder_scan`: several iterations over a device-resident
-  corpus (:func:`stack_corpus`) with the crops drawn on the device, no host
-  sync per step; :func:`crop_batch`: the host crops, numpy, as JAX's;
+  corpus (:func:`stack_corpus`) with the crops drawn on the device, each a
+  replay of one CUDA graph on the card; :func:`crop_batch`: the host
+  crops, numpy, as JAX's;
 - :func:`fit_vocoder`: the loop that trains, resumes, saves the state and
   writes the trained generator for ``vocoder_ckpt``.
 
@@ -45,10 +46,11 @@ from stylesinger_torch.models.hifigan import (
     discriminator_loss, feature_matching_loss, generator_adv_loss,
 )
 from stylesinger_torch.training.checkpoint import _save, load_payload
+from stylesinger_torch.training.graphs import GraphedSteps, stack_steps
 from stylesinger_torch.training.losses import multi_resolution_stft_loss
 from stylesinger_torch.training.step import (
-    adam_direction, adam_moments, apply_update_, bias_corrections,
-    stream_seed,
+    DeviceScalars, adam_direction, adam_moments_, apply_update_,
+    bias_corrections, stream_seed, write_scalars,
 )
 from stylesinger_torch.vocoder_infer import GAN_STATE_FILE, GENERATOR_FILE
 
@@ -64,7 +66,11 @@ class GanOptimizer:
     or ``radam(lr, b1, b2)`` (eps 1e-8 after the bias correction, the
     rectified step where rho >= 5, else the bias-corrected momentum), at a
     constant learning rate, with no clipping.  A parameter without a
-    gradient counts as a zero gradient."""
+    gradient counts as a zero gradient.  The moments are updated in place;
+    an update's host scalars (:meth:`scalars`) reach the device as a
+    tensor (``step.DeviceScalars``), or in a buffer the caller writes,
+    which a CUDA graph of the step reads; RAdam's branch on rho stays on
+    the host (:meth:`graph_key`)."""
 
     def __init__(self, named_params: Dict[str, nn.Parameter], cfg: Any):
         self.kind = cfg["vocoder_optimizer"]
@@ -79,40 +85,60 @@ class GanOptimizer:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in named_params.values()]
         self.nu = [torch.zeros_like(p) for p in named_params.values()]
+        self._scalars = DeviceScalars(3)
 
-    def _radam(self):
-        """The update direction of optax's ``scale_by_radam``, its scalars
-        in f32 as optax computes them."""
+    def _rho(self, count: int):
+        """RAdam's rho at ``count`` and its rectification term, in f32 as
+        optax's ``scale_by_radam`` computes them (the term is 0.0 below the
+        threshold, where the step is the bias-corrected momentum)."""
         f32 = np.float32
         ro_inf = 2.0 / (1.0 - self.b2) - 1.0
-        b2t = f32(self.b2) ** f32(self.count)
-        ro = f32(ro_inf) - f32(2 * self.count) * b2t / (f32(1.0) - b2t)
-        c1, c2 = bias_corrections(self.count, self.b1, self.b2)
-        mu_hat = torch._foreach_div(self.mu, c1)
+        b2t = f32(self.b2) ** f32(count)
+        ro = f32(ro_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
         if ro < RADAM_THRESHOLD:
-            return mu_hat
-        r = float(np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf) / (
-            f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
-        return torch._foreach_div(
-            torch._foreach_mul(mu_hat, r),
-            torch._foreach_add(torch._foreach_sqrt(
-                torch._foreach_div(self.nu, c2)), self.eps))
+            return ro, 0.0
+        return ro, float(np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(
+            ro_inf) / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
+
+    def scalars(self) -> tuple:
+        """(c1, c2, RAdam's rectification term) of the next update, as
+        Python floats."""
+        count = self.count + 1
+        return bias_corrections(count, self.b1, self.b2) + (
+            self._rho(count)[1] if self.kind == "radam" else 0.0,)
+
+    def graph_key(self) -> tuple:
+        """What the next update branches on on the host: RAdam's rho
+        against the threshold."""
+        return (self.kind == "radam"
+                and self._rho(self.count + 1)[0] >= RADAM_THRESHOLD,)
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor],
-             grads: Sequence[Optional[torch.Tensor]]) -> None:
-        """Updates ``params`` in place."""
+             grads: Sequence[Optional[torch.Tensor]],
+             scalars: Optional[torch.Tensor] = None) -> None:
+        """Updates ``params`` in place.  ``scalars``: a [3] device buffer
+        holding :meth:`scalars`, written by the caller (a captured step);
+        None: written here."""
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        (rectified,) = self.graph_key()
+        if scalars is None:
+            scalars = self._scalars.write(self.scalars(), params[0].device)
+        c1, c2, r = scalars.unbind()
         self.count += 1
-        self.mu, self.nu = adam_moments(self.mu, self.nu, grads, self.b1,
-                                        self.b2)
+        adam_moments_(self.mu, self.nu, grads, self.b1, self.b2)
         if self.kind == "adamw":
-            upd = adam_direction(self.mu, self.nu, self.count, self.b1,
-                                 self.b2, self.eps)
+            upd = adam_direction(self.mu, self.nu, c1, c2, self.eps)
             apply_update_(params, upd, self.lr, ADAMW_WEIGHT_DECAY)
-        else:
-            apply_update_(params, self._radam(), self.lr)
+            return
+        mu_hat = torch._foreach_div(self.mu, c1)
+        if rectified:
+            mu_hat = torch._foreach_div(
+                torch._foreach_mul(mu_hat, r),
+                torch._foreach_add(torch._foreach_sqrt(
+                    torch._foreach_div(self.nu, c2)), self.eps))
+        apply_update_(params, mu_hat, self.lr)
 
     def state_dict(self) -> Dict[str, Any]:
         return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
@@ -199,10 +225,12 @@ def vocoder_noise(seed: int, step: int, device: Union[str, torch.device],
 
 
 def make_vocoder_bodies(cfg: Any):
-    """(disc_step, gen_step), each ``(state, batch, noise) -> metrics``: a
-    batch of tensors ``mels`` [B, T, M], ``f0`` [B, T], ``wav`` [B, T * hop]
-    on the state's device; ``noise`` the generator's noise source.  Each
-    updates its side in place; ``gen_step`` advances ``state.step``."""
+    """(disc_step, gen_step), each ``(state, batch, noise, scalars=None) ->
+    metrics``: a batch of tensors ``mels`` [B, T, M], ``f0`` [B, T], ``wav``
+    [B, T * hop] on the state's device; ``noise`` the generator's noise
+    source; ``scalars`` its side's optimizer scalars in a device buffer
+    (``GanOptimizer.step``).  Each updates its side in place; ``gen_step``
+    advances ``state.step``."""
     lambda_fm = float(cfg["lambda_fm"])
     lambda_mel = float(cfg["lambda_mel"])
     lambda_ms_stft = float(cfg["lambda_ms_stft"])
@@ -212,7 +240,8 @@ def make_vocoder_bodies(cfg: Any):
                   fmax=cfg["fmax"])
 
     def disc_step(state: VocoderState, batch: Dict[str, torch.Tensor],
-                  noise) -> Dict[str, torch.Tensor]:
+                  noise, scalars: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             fake = state.gen(batch["mels"], batch["f0"], noise)
         real = batch["wav"]
@@ -222,11 +251,13 @@ def make_vocoder_bodies(cfg: Any):
         fs, _ = state.msd(fake)
         loss = discriminator_loss(rp, fp) + discriminator_loss(rs, fs)
         params = state.disc_params()
-        state.disc_opt.step(params, torch.autograd.grad(loss, params))
+        state.disc_opt.step(params, torch.autograd.grad(loss, params),
+                            scalars)
         return {"disc_loss": loss.detach()}
 
     def gen_step(state: VocoderState, batch: Dict[str, torch.Tensor],
-                 noise) -> Dict[str, torch.Tensor]:
+                 noise, scalars: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
         real = batch["wav"]
         fake = state.gen(batch["mels"], batch["f0"], noise)
         with torch.no_grad():  # the real side carries no gradient
@@ -246,7 +277,7 @@ def make_vocoder_bodies(cfg: Any):
             total = total + lambda_ms_stft * (sc + mag)
         params = list(state.gen.parameters())
         state.gen_opt.step(params, torch.autograd.grad(
-            total, params, allow_unused=True))
+            total, params, allow_unused=True), scalars)
         state.step += 1
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["gen_loss"] = total.detach()
@@ -317,34 +348,66 @@ def device_crops(data: Dict[str, torch.Tensor], noise, crop_frames: int,
             "wav": data["wav"][rows, samples]}
 
 
-def make_vocoder_scan(cfg: Any):
+def make_vocoder_scan(cfg: Any, log: Callable[[str], None] = print
+                      ) -> "VocoderScan":
     """Several GAN iterations over a device-resident corpus
     (:func:`corpus_to_device` of :func:`stack_corpus`), the crops drawn on
-    the device, with no host sync in between.
+    the device (JAX's ``make_vocoder_scan``).
 
-    Returns ``scan_steps(state, data, seed, n_steps, crop_frames,
-    batch_size, noise=vocoder_noise) -> metrics`` (each [n_steps], on the
-    device).  Iteration n draws from ``noise(seed, n, device, stream)``, so
-    the stream continues across calls and resumes."""
-    disc_body, gen_body = make_vocoder_bodies(cfg)
-    hop = cfg["hop_size"]
+    Returns a :class:`VocoderScan`, ``scan(state, data, seed, n_steps,
+    crop_frames, batch_size, noise=vocoder_noise) -> metrics`` (each
+    [n_steps], on the device).  Iteration n draws from ``noise(seed, n,
+    device, stream)``, so the stream continues across calls and resumes.
 
-    def scan_steps(state: VocoderState, data: Dict[str, torch.Tensor],
-                   seed: int, n_steps: int, crop_frames: int,
-                   batch_size: int, noise: Callable = vocoder_noise
-                   ) -> Dict[str, torch.Tensor]:
-        device = state.device
-        out = []
-        for _ in range(n_steps):
-            n = state.step
-            batch = device_crops(data, noise(seed, n, device, "crop"),
-                                 crop_frames, batch_size, hop)
-            dm = disc_body(state, batch, noise(seed, n, device, "noise"))
-            gm = gen_body(state, batch, noise(seed, n, device, "noise"))
-            out.append({**dm, **gm})
-        return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+    On the card each iteration is a replay of one CUDA graph of the
+    crops, the discriminator step and the generator step at the crop
+    shape (one graph per RAdam branch and crop shape; the first iteration
+    of each is eager and the capture follows it, ``training/graphs.py``;
+    ``scan.graphs``): the discriminator step's generator pass launches the
+    MRF kernel inside the graph.  On the CPU each iteration runs eagerly
+    through the same code."""
+    return VocoderScan(cfg, log)
 
-    return scan_steps
+
+class VocoderScan:
+    """:func:`make_vocoder_scan`'s windows; ``graphs`` holds the graphs of
+    the last (state, corpus) it ran on."""
+
+    def __init__(self, cfg: Any, log: Callable[[str], None] = print):
+        self.cfg = cfg
+        self.disc_body, self.gen_body = make_vocoder_bodies(cfg)
+        self.graphs = GraphedSteps(
+            lambda st: ((st, "step"), (st.gen_opt, "count"),
+                        (st.disc_opt, "count")), log)
+
+    def __call__(self, state: VocoderState, data: Dict[str, torch.Tensor],
+                 seed: int, n_steps: int, crop_frames: int, batch_size: int,
+                 noise: Callable = vocoder_noise) -> Dict[str, torch.Tensor]:
+        device, hop, graphs = state.device, self.cfg["hop_size"], self.graphs
+        graphs.bind(state, data)
+        scalars = graphs.buffer("scalars", (2, 3))
+
+        def body(src):
+            batch = device_crops(data, src["crop"], crop_frames, batch_size,
+                                 hop)
+            metrics = self.disc_body(state, batch, src["disc"], scalars[0])
+            metrics.update(self.gen_body(state, batch, src["gen"],
+                                         scalars[1]))
+            return metrics
+
+        def steps():
+            for _ in range(n_steps):
+                n = state.step
+                write_scalars(scalars[0], state.disc_opt.scalars())
+                write_scalars(scalars[1], state.gen_opt.scalars())
+                src = {"crop": noise(seed, n, device, "crop"),
+                       "disc": noise(seed, n, device, "noise"),
+                       "gen": noise(seed, n, device, "noise")}
+                yield graphs.run(state.disc_opt.graph_key() +
+                                 state.gen_opt.graph_key() +
+                                 (crop_frames, batch_size), body, src)
+
+        return stack_steps(steps())
 
 
 def crop_batch(items, cfg: Any, rng: np.random.Generator,
@@ -384,7 +447,8 @@ def fit_vocoder(cfg: Any, items: Sequence[Dict[str, np.ndarray]],
                 steps: int, work_dir: str, *, batch: int = 16,
                 crop_frames: int = 64, spd: int = 1,
                 device: Union[str, torch.device] = "cuda", seed: int = 0,
-                log: Callable[[str], None] = print
+                log: Callable[[str], None] = print,
+                scan: Optional["VocoderScan"] = None
                 ) -> Tuple[VocoderState, List[Dict[str, torch.Tensor]]]:
     """Train the GAN to ``steps`` iterations on ``items`` (dicts of ``mel``
     [T, M], ``f0`` [T], ``wav`` [T * hop]), as ``tools/validate_vocoder.py``
@@ -395,7 +459,10 @@ def fit_vocoder(cfg: Any, items: Sequence[Dict[str, np.ndarray]],
     ``spd`` 1: host crops (:func:`crop_batch`, a numpy generator seeded 0
     whose state the saved state carries, so a resumed run crops as an
     unbroken one) and one dispatch per step; ``spd`` > 1: the corpus on the
-    device and windows of up to ``spd`` iterations (:func:`make_vocoder_scan`).
+    device, crops drawn there from the ``crop`` stream (so not the crops
+    of ``spd`` 1), and windows of up to ``spd`` iterations that stop at
+    the log interval (:func:`make_vocoder_scan`, or ``scan`` when given:
+    each iteration a CUDA graph replay on the card, eager on the CPU).
     Returns the state and each iteration's metrics (tensors on the device).
     """
     device = resolve_device(device)
@@ -426,10 +493,10 @@ def fit_vocoder(cfg: Any, items: Sequence[Dict[str, np.ndarray]],
     if spd > 1:
         data = corpus_to_device(stack_corpus(items, cfg, max(
             int(it["mel"].shape[0]) for it in items)), device)
-        scan_steps = make_vocoder_scan(cfg)
+        scan = scan or make_vocoder_scan(cfg, log)
         while i < steps:
             w = min(spd, steps - i, LOG_INTERVAL - i % LOG_INTERVAL)
-            m = scan_steps(state, data, seed, w, crop_frames, batch)
+            m = scan(state, data, seed, w, crop_frames, batch)
             history += [{k: v[j] for k, v in m.items()} for j in range(w)]
             i += w
             if i % LOG_INTERVAL == 0 or i >= steps:

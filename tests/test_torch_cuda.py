@@ -188,15 +188,15 @@ class _CpuDraws:
         return self.noise.bernoulli(p, shape).to(self.device)
 
 
-def _tiny_train_batch(cfg):
-    """The tiny model's 4-item batch (seeded) of the card-against-CPU train
-    step tests."""
+def _tiny_train_batch(cfg, seed=0, n=4):
+    """The tiny model's ``n``-item batch (seeded) of the card-against-CPU
+    train step tests."""
     from stylesinger_torch.data.batching import collate_batch
     from stylesinger_torch.data.dataset import StyleSingerDataset
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     items = []
-    for i in range(4):
+    for i in range(n):
         t = int(rng.integers(16, 30))
         tt = max(2, t // 4)
         items.append({
@@ -210,7 +210,7 @@ def _tiny_train_batch(cfg):
             "spk_embed": rng.standard_normal(256).astype(np.float32),
             "emo_embed": rng.standard_normal(256).astype(np.float32)})
     ds = StyleSingerDataset(cfg, "train", items=items)
-    return collate_batch([ds[i] for i in range(4)], cfg["frame_buckets"],
+    return collate_batch([ds[i] for i in range(n)], cfg["frame_buckets"],
                          cfg["token_buckets"])
 
 
@@ -475,9 +475,9 @@ def test_tiny_gan_iteration_on_the_card_matches_cpu(cuda):
     for name, st in (("cpu", cpu), ("gpu", gpu)):
         seen = grads[name] = []
         for opt in (st.disc_opt, st.gen_opt):
-            def rec(params, g, _step=opt.step, _seen=seen):
+            def rec(params, g, *rest, _step=opt.step, _seen=seen):
                 _seen.append([x.detach().cpu().clone() for x in g])
-                _step(params, g)
+                _step(params, g, *rest)
             opt.step = rec
     disc_step, gen_step = vt.make_vocoder_bodies(cfg)
     metrics = {}
@@ -826,3 +826,163 @@ def test_legacy_vocoders_and_denoisers_on_the_card_match_cpu(cuda):
                       pq_card.synthesis(pq_card.analysis(wav.to(cuda))))):
         assert (out.cpu() - ref).abs().max() <= 1e-4 * max(
             1.0, ref.abs().max())
+
+
+@pytest.fixture
+def deterministic():
+    """PyTorch's deterministic algorithms for one test (warnings only where
+    an op has none), then the mode as it was."""
+    import warnings
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
+    torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _unequal(got: dict, want: dict) -> list:
+    return [k for k, v in want.items() if not torch.equal(got[k], v)]
+
+
+@pytest.mark.cuda
+def test_graphed_train_steps_equal_eager_steps(cuda, deterministic, tmp_path):
+    """``make_train_scan`` on the card (a CUDA graph per curriculum phase,
+    the first step of each eager, the next a replay) against eager
+    ``train_step`` calls: the same seeded weights, padded epoch of two
+    batches of different shapes, order and draws, TF32 off, 4 steps across
+    the forcing boundary.  Every loss, the grad norm, each parameter and
+    each RQ buffer equal bit for bit, with PyTorch's deterministic
+    algorithms (without them the atomic adds of the gathers' backward
+    leave, in two eager runs alike, differences Adam lifts to a share of
+    lr where a gradient is 0 in exact arithmetic)."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+    from stylesinger_torch.training.trainer import Trainer
+
+    # RQ and the mel diffusion from step 0, forcing off from step 2
+    cfg = tiny_test_config(forcing=2, rq_start=-1, diff_start=-1,
+                           steps_per_dispatch=2)
+    one, two = _tiny_train_batch(cfg), _tiny_train_batch(cfg, seed=1, n=2)
+    trainer = Trainer(StyleSinger(cfg, 20), cfg, str(tmp_path), device=cuda)
+    stacked, n_b = trainer._stack_batches([one, two])
+    graphed = ts.init_state(StyleSinger(cfg, 20).to(cuda), cfg)
+    model = StyleSinger(cfg, 20).to(cuda)
+    model.load_state_dict(graphed.model.state_dict())
+    eager = ts.TrainState(model, ts.Optimizer(dict(model.named_parameters()),
+                                              cfg))
+    order = [1, 0, 0, 1]
+    scan = ts.make_train_scan(cfg)
+    got = []
+    for lo in (0, 2):
+        m = scan(graphed, stacked, order[lo:lo + 2],
+                 ts.phase_for_step(lo, cfg))
+        got += [{k: v[j] for k, v in m.items()} for j in range(2)]
+    assert len(scan.graphs.capture_seconds) == 2
+    for t, j in enumerate(order):
+        m = ts.train_step(eager, {k: v[j] for k, v in stacked.items()},
+                          ts.phase_for_step(t, cfg), cfg)
+        assert set(m) == set(got[t]), t
+        assert not _unequal(got[t], m), (t, _unequal(got[t], m))
+    assert graphed.step == eager.step == 4
+    assert graphed.opt.count == eager.opt.count == 4
+    bad = _unequal(graphed.model.state_dict(), eager.model.state_dict())
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_graphed_gan_iterations_equal_eager_ones(cuda, deterministic):
+    """``make_vocoder_scan`` on the card (one CUDA graph: the crops, the
+    discriminator step, whose generator pass launches the MRF kernel
+    inside the graph, and the generator step; the first iteration eager)
+    against the same 3 iterations run eagerly: the same seeded state,
+    corpus and draws, TF32 off, PyTorch's deterministic algorithms; every
+    loss and each parameter equal bit for bit.  The wrapper counts 27
+    launches in the eager iteration and 27 in the capture, which records
+    them into the graph; a replay runs them without the wrapper, and
+    torch.profiler sees 27 MRF kernels in each of 2 more replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stylesinger_torch.training import vocoder_task as vt
+
+    cfg = _gan_config()
+    rng = np.random.default_rng(4)
+    items = [{"mel": rng.standard_normal((t, 16)).astype(np.float32),
+              "f0": rng.uniform(150, 250, t).astype(np.float32),
+              "wav": 0.3 * rng.standard_normal(t * 64).astype(np.float32)}
+             for t in (20, 28)]
+    data = vt.corpus_to_device(vt.stack_corpus(items, cfg, 28), cuda)
+    graphed = vt.init_vocoder_state(cfg, device=cuda)
+    eager = vt.init_vocoder_state(cfg, device=cuda)
+    scan = vt.make_vocoder_scan(cfg)
+    before = mrfk.counter.count
+    m = scan(graphed, data, 7, 3, 16, 2)
+    assert mrfk.counter.count == before + 2 * 27
+    assert len(scan.graphs.capture_seconds) == 1
+    disc_body, gen_body = vt.make_vocoder_bodies(cfg)
+    for n in range(3):
+        b = vt.device_crops(data, vt.vocoder_noise(7, n, cuda, "crop"), 16,
+                            2, cfg["hop_size"])
+        want = disc_body(eager, b, vt.vocoder_noise(7, n, cuda, "noise"))
+        want.update(gen_body(eager, b, vt.vocoder_noise(7, n, cuda,
+                                                        "noise")))
+        assert set(want) == set(m)
+        got = {k: v[n] for k, v in m.items()}
+        assert not _unequal(got, want), (n, _unequal(got, want))
+    assert graphed.step == eager.step == 3
+    assert mrfk.counter.count == before + 5 * 27
+    named = lambda st: {**dict(st.gen.named_parameters()),  # noqa: E731
+                        **st.named_disc_params()}
+    bad = _unequal(named(graphed), named(eager))
+    assert not bad, bad
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan(graphed, data, 7, 2, 16, 2)
+        torch.cuda.synchronize()
+    assert mrfk.counter.count == before + 5 * 27
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert sum("mrf_step_kernel" in k for k in kernels) == 2 * 27
+
+
+@pytest.mark.cuda
+def test_graph_captures_share_one_stream(cuda):
+    """Four ``GraphedSteps``, each bound to a state of its own, capture a
+    matmul step and replay it; the memory allocated after the last three
+    equals that after the first.  Every capture on a device runs on one
+    side stream: PyTorch keeps the cuBLAS workspaces of each stream that
+    ran a matmul for the life of the process, so a stream per capture
+    would leave them allocated after each fit."""
+    import gc
+    import types
+
+    from stylesinger_torch.training.graphs import GraphedSteps
+
+    def bound_run():
+        state = types.SimpleNamespace(device=cuda, step=0)
+        w = torch.randn(256, 256, device=cuda, requires_grad=True)
+        x = torch.randn(8, 256, device=cuda)
+        graphs = GraphedSteps(lambda st: ((st, "step"),))
+        graphs.bind(state, x)
+
+        def fn(noise):
+            loss = (x @ w).square().mean()
+            loss.backward()
+            state.step += 1
+            return loss.detach()
+
+        for _ in range(3):
+            graphs.run("step", fn, {})
+        torch.cuda.synchronize()
+        assert state.step == 3 and list(graphs.capture_seconds) == ["step"]
+
+    bound_run()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        bound_run()
+    gc.collect()
+    assert torch.cuda.memory_allocated() == before

@@ -80,7 +80,11 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.models.pe",
                      "stylesinger_torch.models.diffnet",
                      "stylesinger_torch.models.legacy_vocoders",
-                     "stylesinger_torch.training.fs2_task"):
+                     "stylesinger_torch.training.fs2_task",
+                     "stylesinger_torch.training.graphs",
+                     "stylesinger_torch.utils.meters",
+                     "stylesinger_torch.utils.plot",
+                     "stylesinger_torch.utils.profiling"):
         assert expected in names
 
 

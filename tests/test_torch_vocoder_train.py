@@ -389,10 +389,10 @@ def capture_grads(opt):
     seen = []
     step = opt.step
 
-    def rec(params, grads):
+    def rec(params, grads, *rest):
         seen.append([None if g is None else g.detach().clone()
                      for g in grads])
-        step(params, grads)
+        step(params, grads, *rest)
 
     opt.step = rec
     return seen
