@@ -88,6 +88,12 @@ Phases, each printed on its own line with its elapsed seconds:
      and concatenated: losses within 1e-4, gradients within 1e-3 *
      max|g_leaf| + 1e-6 * max|g|, RQ buffers within 1e-5, both ranks'
      states equal; each rank has a 300 s timeout;
+   - ``model parallel``: the ``model`` mesh axis, two ranks on the one
+     card over gloo in a 1 x 2 grid (``make_mesh(1, 2)``), every
+     ``TransformerFFN`` split over them (``shard_params``), one tiny step
+     on the same 4 rows against one process's step at the ``data
+     parallel`` tolerances on the gathered gradients and state, the
+     replicated leaves equal on both ranks bit for bit; no kernel;
 5. training the vocoder GAN on the card:
    - ``small vocoder gan step``: one discriminator + generator iteration of
      the tiny GAN on the card against the CPU (same weights, batch and
@@ -185,6 +191,19 @@ Phases, each printed on its own line with its elapsed seconds:
      (``tests/reference_layout.py``), ``load_params`` of the work dir it
      writes (within 1e-6 of the seeded weights) and one request on the
      card;
+   - ``serving export dpm10_f0fast5`` (``serving/export.py``): the
+     recipe's synthesizer with the fast samplers (50 denoiser calls
+     unrolled) exported with ``torch.export`` on ``cuda`` at one bucket
+     (batch 1, the example phrase's 64-token bucket, the 4 s clip's
+     1024-frame bucket, ``max_frames`` 3000), saved, loaded and called on
+     the draws of ``noise_from_seed(SEED)`` with TF32 off: wav, mel and F0
+     within 1e-4 of the live ``make_synthesize_fn`` on the same draws,
+     ``mel2ph`` equal, the mel within 1e-4 of ``forward_model`` with
+     ``Noise(SEED)``, and 27 bf16 MRF launches per call, counted by the
+     registered operator's CUDA implementation with every count set to 0
+     just before the call; export, save and load seconds, the artifact's
+     MB, first and warm call ms (the 100-step recipe's export is timed by
+     ``serving_export_check.py``);
 10. device time per call of each kernel and its twin at the shapes of
    phase 1 (``device_ms``: the durations of the CUDA kernels a call
    launches, from ``torch.profiler``), host gaps left out.  It runs last,
@@ -1458,6 +1477,259 @@ def phase_data_parallel(t0, torch, np, root: Path):
     require(equal, "data parallel: the two ranks' states differ")
     require(not any(launches.values()),
             f"data parallel: a kernel launched {launches}")
+
+
+_MP_RANK = r"""
+import os, sys
+import numpy as np
+import torch
+
+from stylesinger_torch.config import tiny_test_config
+from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.models.stylesinger import StyleSinger
+from stylesinger_torch.parallel import mesh
+from stylesinger_torch.training import step as ts
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+d, seed = sys.argv[1], int(sys.argv[2])
+assert mesh.init_distributed("cuda", backend="gloo")
+grid = mesh.make_mesh(n_data=1, n_model=2)
+rank = mesh.rank()
+cfg = tiny_test_config()
+model = StyleSinger(cfg, 20)
+model.load_state_dict(torch.load(os.path.join(d, "weights.pt")))
+mesh.shard_params(model.cuda(), grid)
+state = ts.TrainState(model, ts.Optimizer(
+    dict(model.named_parameters()), cfg))
+batch = dict(np.load(os.path.join(d, "batch.npz")))
+m = ts.train_step(state, ts.batch_to_device(batch, "cuda"),
+                  ts.Phase(True, False, True), cfg,
+                  noise={s: Noise(seed + i, "cuda")
+                         for i, s in enumerate(ts.STREAMS)})
+split = mesh.split_dims(model)
+out = {f"metric/{k}": v.cpu().numpy() for k, v in m.items()}
+out.update({f"state/{k}": v.cpu().numpy() for k, v in
+            mesh.full_tensors(model, model.state_dict()).items()})
+out.update({f"grad/{k}": v.cpu().numpy() for k, v in mesh.full_tensors(
+    model, {k: p.grad for k, p in model.named_parameters()}).items()})
+out.update({f"replicated/{k}": v.cpu().numpy() for k, v in
+            model.state_dict().items() if k not in split})
+out["split"] = np.array(len(split))
+np.savez(os.path.join(d, f"out{rank}.npz"), **out)
+print(f"RANK_OK {rank}", flush=True)
+"""
+
+
+def phase_model_parallel(t0, torch, np, root: Path):
+    """The ``model`` mesh axis: two ranks on this one card, two processes
+    over gloo (NCCL refuses two ranks on one device), in a 1 x 2 grid
+    (``make_mesh(1, 2)``), each ``TransformerFFN`` split over them
+    (``shard_params``), one step of the tiny model on the same 4 rows,
+    against one process's step (draws from seeded generators on the card,
+    TF32 off), at the ``data parallel`` tolerances on the gathered
+    gradients; the replicated leaves equal on both ranks, bit for bit."""
+    from stylesinger_torch.config import tiny_test_config
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+
+    cfg = tiny_test_config()
+    init = ts.init_state(StyleSinger(cfg, 20), cfg).model.state_dict()
+    batch = collated(cfg, synthetic_items(np, 4, (16, 30), (3, 7), 16, 20,
+                                          SEED + 3))
+    batch = {k: v for k, v in batch.items() if k != "nsamples"}
+    for ctr in counters().values():
+        ctr.reset()
+    model = StyleSinger(cfg, 20)
+    model.load_state_dict(init)
+    ref_state = ts.TrainState(model.cuda(), ts.Optimizer(
+        dict(model.named_parameters()), cfg))
+    ref_m = ts.train_step(ref_state, ts.batch_to_device(batch, "cuda"),
+                          ts.Phase(use_rq=True, forcing=False,
+                                   use_diff=True), cfg,
+                          noise={s: Noise(SEED + 20 + i, "cuda")
+                                 for i, s in enumerate(ts.STREAMS)})
+    torch.cuda.synchronize()
+    d = root / "model_parallel"
+    d.mkdir()
+    torch.save(init, d / "weights.pt")
+    np.savez(d / "batch.npz", **batch)
+    env = dict(os.environ, PYTHONPATH=str(REPO), WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               LOCAL_RANK="0")
+    tp = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MP_RANK, str(d), str(SEED + 20)],
+        cwd=str(REPO), env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0 and r < len(outs) and
+                f"RANK_OK {r}" in outs[r],
+                f"model parallel: rank {r} failed: "
+                f"{(outs[r] if r < len(outs) else '')[-2000:]}")
+    ranks = [dict(np.load(d / f"out{r}.npz")) for r in range(2)]
+    differ = [k for k in ranks[0] if k.startswith(("replicated/", "state/"))
+              and not np.array_equal(ranks[0][k], ranks[1][k])]
+    equal = not differ
+    worst = [_dp_compare(torch, np, ref_state, ref_m, ranks[r],
+                         f"model parallel rank {r}") for r in range(2)]
+    launches = {k: c.count for k, c in counters().items()}
+    say("model parallel 1x2", t0, backend="gloo (CUDA tensors)",
+        split_leaves=int(ranks[0]["split"]),
+        rows=tuple(batch["mels"].shape),
+        loss_err=f"{max(w[0] for w in worst):.2e}",
+        grad_err_over_tol=f"{max(w[1] for w in worst):.3f}",
+        rq_err=f"{max(w[2] for w in worst):.2e}",
+        replicated_equal=equal, seconds=f"{time.perf_counter() - tp:.2f}",
+        launches=launches)
+    require(int(ranks[0]["split"]) > 0, "model parallel: nothing split")
+    require(equal, f"model parallel: the ranks' replicated leaves differ: "
+            f"{differ[:8]}")
+    require(not any(launches.values()),
+            f"model parallel: a kernel launched {launches}")
+
+
+SERVE_TOL = 1e-4  # the artifact against the live function, TF32 off
+
+
+def serving_bucket(np, torch, infer, wav_np):
+    """The EXAMPLE phrase with the 4 s clip, padded as ``infer_batch`` pads
+    to the config's token and frame buckets."""
+    from stylesinger_torch.inference import _fit_bucket
+
+    cfg = infer.cfg
+    b = infer.preprocess_input(dict(EXAMPLE, ref_audio=wav_np))
+    t_txt = _fit_bucket(b["txt_tokens"].shape[1], cfg["token_buckets"])
+    t_ref = _fit_bucket(b["ref_mels"].shape[1], cfg["frame_buckets"])
+    width = dict(txt_tokens=t_txt, note=t_txt, note_dur=t_txt,
+                 note_type=t_txt, ref_mels=t_ref, ref_f0=t_ref)
+    out = {}
+    for k, v in b.items():
+        if k in width:
+            pad = [0, 0] * (v.ndim - 2) + [0, width[k] - v.shape[1]]
+            v = torch.nn.functional.pad(v, pad)
+        out[k] = v
+    return out, t_txt, t_ref
+
+
+def phase_serving_export(t0, torch, np, cfg, label, wav_np, root: Path):
+    """``serving/export.py`` on the card: the synthesizer of ``cfg`` (random
+    weights from SEED) exported with ``torch.export`` at one bucket (batch
+    1, the EXAMPLE phrase's token bucket, the 4 s clip's frame bucket,
+    ``max_frames``), saved, loaded and called on ``noise_from_seed(SEED)``
+    with TF32 off: its wav, mel and F0 within SERVE_TOL of the live
+    ``make_synthesize_fn`` on the same draws, ``mel2ph`` equal, and the
+    mel within SERVE_TOL of ``forward_model`` with ``Noise(SEED)`` (the
+    predicted frames); the call's MRF launches, counted by the operator's
+    CUDA implementation, set to 0 just before it and read just after.
+    Prints the export, save and load seconds, the artifact's MB and the
+    first and warm call ms."""
+    from stylesinger_torch.models.diffusion import Noise
+    from stylesinger_torch.serving import (
+        export_synthesizer, load_synthesizer, make_synthesize_fn,
+        noise_from_seed, save_synthesizer, synthesize,
+    )
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        phones = sorted(set(EXAMPLE["ph"].split()))
+        infer = make_infer(cfg, phones, "cuda", SEED)
+        vocab = len(infer.ph_encoder)
+        params = {k: v.detach() for k, v in
+                  infer.model.state_dict().items()}
+        voc = {k: v.detach() for k, v in infer.vocoder.state_dict().items()}
+        batch, t_txt, t_ref = serving_bucket(np, torch, infer, wav_np)
+        frames = cfg["max_frames"]
+        tx = time.perf_counter()
+        ep = export_synthesizer(cfg, vocab, batch=1, t_txt=t_txt,
+                                t_ref=t_ref, max_frames=frames,
+                                device="cuda", variables=params,
+                                voc_variables=voc)
+        export_s = time.perf_counter() - tx
+        nodes = sum(1 for n in ep.graph.nodes if n.op == "call_function")
+        ops = sum(1 for n in ep.graph.nodes if n.op == "call_function" and
+                  n.target == torch.ops.stylesinger.fused_mrf_blocks.default)
+        path = root / f"synth_{label.replace(' ', '_')}.pt2"
+        tx = time.perf_counter()
+        save_synthesizer(ep, str(path))
+        save_s = time.perf_counter() - tx
+        del ep
+        tx = time.perf_counter()
+        loaded = load_synthesizer(str(path))
+        load_s = time.perf_counter() - tx
+        mb = path.stat().st_size / 2 ** 20
+        say(f"serving export {label} artifact", t0,
+            bucket=f"1x{t_txt}x{t_ref}->{frames}", graph_ops=nodes,
+            mrf_op_nodes=ops, export_s=f"{export_s:.1f}",
+            save_s=f"{save_s:.1f}", load_s=f"{load_s:.1f}",
+            artifact_mb=f"{mb:.1f}")
+        noise = noise_from_seed(loaded, SEED)
+        stages = len(mrf_stages(cfg, np)) * sum(
+            len(dl) for dl in cfg["resblock_dilation_sizes"])
+        bf16 = cfg["vocoder_compute_dtype"] == "bfloat16"
+        key = "fused_mrf_blocks_bf16" if bf16 else "fused_mrf_blocks"
+        times, launches = [], None
+        with torch.no_grad():
+            for i in range(4):
+                for ctr in counters().values():
+                    ctr.reset()
+                torch.cuda.synchronize()
+                tx = time.perf_counter()
+                # (the batch's keys in preprocess_input's order, not the
+                # export's: synthesize puts them in the artifact's)
+                out = synthesize(loaded, params, voc, batch, noise)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - tx))
+                if i == 0:
+                    launches = {k: c.count for k, c in counters().items()}
+            live = make_synthesize_fn(cfg, vocab, frames)(params, voc, batch,
+                                                          noise)
+            ref = infer.forward_model(batch, max_frames=frames,
+                                      noise=Noise(SEED, "cuda"))
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(out[:3], live[:3])]
+        n = ref["mel"].shape[0]
+        fm_err = float(np.abs(out[1][0, :n].cpu().numpy() -
+                              ref["mel"]).max()) if n else 0.0
+        same_mel2ph = bool(torch.equal(out[3], live[3]))
+        finite = all(bool(torch.isfinite(a).all()) for a in out[:3])
+        say(f"serving export {label}", t0, first_call_ms=f"{times[0]:.1f}",
+            warm_call_ms=f"{sorted(times[1:])[1]:.1f}",
+            warm_calls_ms=[round(t, 1) for t in times[1:]],
+            draws=len(noise), wav_err=f"{errs[0]:.2e}",
+            mel_err=f"{errs[1]:.2e}", f0_err=f"{errs[2]:.2e}",
+            forward_model_mel_err=f"{fm_err:.2e}", predicted_frames=n,
+            mel2ph_equal=same_mel2ph, finite=finite, tol=SERVE_TOL,
+            launches=launches)
+        require(finite and same_mel2ph and max(errs + [fm_err]) <= SERVE_TOL,
+                f"serving export {label}: the artifact differs from the "
+                f"live function (wav/mel/f0 {errs}, forward_model {fm_err})")
+        want = {k: 0 for k in counters()}
+        want[key] = stages
+        require(launches == want, f"serving export {label}: launches "
+                f"{launches}, expected {want}")
+        path.unlink()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return dict(export_s=export_s, save_s=save_s, load_s=load_s,
+                artifact_mb=mb, graph_ops=nodes, first_ms=times[0],
+                warm_ms=sorted(times[1:])[1])
 
 
 def phase_recipe_file(t0, torch, np, root: Path, binary: Path):
@@ -3591,6 +3863,7 @@ def main() -> int:
             phase_train_dispatch(t0, torch, np, smi)
             phase_settings(t0, torch, np)
             phase_data_parallel(t0, torch, np, root)
+            phase_model_parallel(t0, torch, np, root)
             phase_vocoder_gan_small(t0, torch, np)
             generator = phase_vocoder_gan(t0, torch, np, root)
             phase_vocoder_gan_dispatch(t0, torch, np, smi)
@@ -3605,6 +3878,9 @@ def main() -> int:
             phase_legacy_vocoders(t0, torch, np, smi, wav_np)
             phase_diffnet_variants(t0, torch, np, smi)
             phase_convert_cli(t0, torch, np, root, wav_np)
+            phase_serving_export(t0, torch, np, dict(
+                recipe, f0_speedup=5, dpm_steps=10), "dpm10_f0fast5",
+                wav_np, root)
         phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
         again(label="breakdown recipe request 0 after profiling")
         phase_dispatch_timing(t0, torch, np, smi)

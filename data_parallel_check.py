@@ -16,13 +16,22 @@ Checked: rank 0's losses within 1e-4 (relative, atol 1e-4) of the
 reference's, every gradient leaf within 1e-3 * max|g_leaf| + 1e-6 * max|g|
 and the RQ buffers within 1e-5 (``chip_smoke.py``'s ``data parallel``
 tolerances), and every rank's parameters and buffers equal after the step.
-Printed: the errors, the warm step times (host clock between
+Printed: the errors and the gradient leaf that errs most, the same for
+the one process's first step taken twice (the card's own spread between
+two runs of one step), the warm step times (host clock between
 synchronizes, the ranks between barriers), the card's ``nvidia-smi`` name
 and power limit, and as the last line ``{"ok": true, ...}``.
 
+With ``--model M`` the ranks form a ``world / M`` x ``M`` grid
+(``parallel/mesh.py::make_mesh``): each ``TransformerFFN`` is split over
+the M ranks of a model group (``shard_params``), whose ranks hold the same
+rows; the batch splits over the ``world / M`` data indices.  The
+gradients and parameters are gathered to their full layout before the
+comparison.
+
 Run from the repo root on a machine with N GPUs:
 
-    python3 data_parallel_check.py --world N
+    python3 data_parallel_check.py --world N [--model M]
 
 or on the CPU with the tiny model over gloo (a rehearsal of the same
 path): ``python3 data_parallel_check.py --device cpu --tiny --world 4``.
@@ -89,20 +98,22 @@ def snapshot(state, metrics):
 
 
 def compare(torch, ref, got):
-    """(worst loss error, worst gradient error over its tolerance, worst
-    RQ buffer error) of ``got`` against ``ref``."""
+    """(worst loss error, worst gradient error over its tolerance, the
+    name of that gradient leaf, worst RQ buffer error) of ``got`` against
+    ``ref``."""
     loss = max(abs(got["metrics"][k] - v) / max(1.0, abs(v))
                for k, v in ref["metrics"].items())
     g_max = max(float(g.abs().max()) for g in ref["grads"].values())
-    grad = max(float((got["grads"][k] - g).abs().max()) /
-               (1e-3 * float(g.abs().max()) + 1e-6 * g_max)
-               for k, g in ref["grads"].items())
+    grad, leaf = max((float((got["grads"][k] - g).abs().max()) /
+                      (1e-3 * float(g.abs().max()) + 1e-6 * g_max), k)
+                     for k, g in ref["grads"].items())
     buf = max(float((got["buffers"][k] - v).abs().max())
               for k, v in ref["buffers"].items())
-    return loss, grad, buf
+    return loss, grad, leaf, buf
 
 
-def rank_worker(d: Path, device: str, tiny: bool, steps: int) -> int:
+def rank_worker(d: Path, device: str, tiny: bool, steps: int,
+                n_model: int = 1) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -117,25 +128,34 @@ def rank_worker(d: Path, device: str, tiny: bool, steps: int) -> int:
         torch.set_num_threads(1)
     assert mesh.init_distributed(device)
     r, w = mesh.rank(), mesh.world_size()
+    grid = mesh.make_mesh(w // n_model, n_model) if n_model > 1 else None
+    dr, dw = mesh.data_rank(), mesh.data_size()
     dev = mesh.local_device(device)
     cfg, batch, vocab = make_run(np, tiny)
     n = batch["mels"].shape[0]
-    local = ts.batch_to_device(rows_of(batch, r * n // w, (r + 1) * n // w),
-                               dev)
+    local = ts.batch_to_device(rows_of(batch, dr * n // dw,
+                                       (dr + 1) * n // dw), dev)
     model = StyleSinger(cfg, vocab)
     model.load_state_dict(torch.load(d / "weights.pt"))
-    state = ts.TrainState(model.to(dev), ts.Optimizer(
+    model.to(dev)
+    if grid is not None:
+        mesh.shard_params(model, grid)
+    state = ts.TrainState(model, ts.Optimizer(
         dict(model.named_parameters()), cfg))
     phase = ts.Phase(use_rq=True, forcing=False, use_diff=True)
     m = ts.train_step(state, local, phase, cfg)
-    flat = torch.cat([v.detach().reshape(-1).float()
-                      for v in model.state_dict().values()])
+    full = mesh.full_tensors(model, model.state_dict())
+    flat = torch.cat([v.detach().reshape(-1).float() for v in full.values()])
     hi, lo = flat.clone(), flat.clone()
     dist.all_reduce(hi, op=dist.ReduceOp.MAX)
     dist.all_reduce(lo, op=dist.ReduceOp.MIN)
     equal = bool(torch.equal(hi, lo))
+    snap = snapshot(state, m)
+    snap["grads"] = {k: v.cpu() for k, v in mesh.full_tensors(model, {
+        k: p.grad for k, p in model.named_parameters()
+        if p.grad is not None}).items()}
     if r == 0:
-        torch.save(snapshot(state, m), d / "rank0.pt")
+        torch.save(snap, d / "rank0.pt")
 
     def sync():
         if dev.type == "cuda":
@@ -143,8 +163,9 @@ def rank_worker(d: Path, device: str, tiny: bool, steps: int) -> int:
         dist.barrier()
 
     times = timed_steps(torch, ts, state, local, phase, cfg, steps, sync)
-    print("RANK " + json.dumps(dict(rank=r, world=w, rows=local["mels"]
-                                    .shape[0], ranks_equal=equal,
+    print("RANK " + json.dumps(dict(rank=r, world=w, model=n_model,
+                                    rows=local["mels"].shape[0],
+                                    ranks_equal=equal,
                                     warm_ms=[round(t, 1) for t in times])),
           flush=True)
     dist.destroy_process_group()
@@ -159,11 +180,13 @@ def main() -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="the tiny test model in place of the recipe's")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of a model group (the FFN split)")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         return rank_worker(Path(args.rank_worker), args.device, args.tiny,
-                           args.steps)
+                           args.steps, args.model)
 
     import numpy as np
     import torch
@@ -180,9 +203,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, batch, vocab = make_run(np, args.tiny)
     n = batch["mels"].shape[0]
-    if n % world or (cuda and world > torch.cuda.device_count()):
-        print(f"data_parallel_check: {world} ranks for {n} rows on "
-              f"{torch.cuda.device_count() if cuda else 'no'} GPUs",
+    n_data = world // args.model
+    if world % args.model or n % n_data or (
+            cuda and world > torch.cuda.device_count()):
+        print(f"data_parallel_check: {n_data} x {args.model} ranks for {n} "
+              f"rows on {torch.cuda.device_count() if cuda else 'no'} GPUs",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
@@ -206,13 +231,22 @@ def main() -> int:
         model.load_state_dict(init)
         state = ts.TrainState(model.to(dev), ts.Optimizer(
             dict(model.named_parameters()), cfg))
+        # the same first step again in this process: how far one card's
+        # step moves from itself (the backward's atomic sums)
+        _, repeat, repeat_leaf, _ = compare(torch, ref, snapshot(
+            state, ts.train_step(state, whole, phase, cfg)))
+        model = StyleSinger(cfg, vocab)
+        model.load_state_dict(init)
+        state = ts.TrainState(model.to(dev), ts.Optimizer(
+            dict(model.named_parameters()), cfg))
         share_ms = timed_steps(torch, ts, state, ts.batch_to_device(
-            rows_of(batch, 0, n // world), dev), phase, cfg, args.steps, sync)
+            rows_of(batch, 0, n // n_data), dev), phase, cfg, args.steps,
+            sync)
         del state, model, whole
         if cuda:
             torch.cuda.empty_cache()
         print("ONE " + json.dumps(dict(rows=n, warm_ms=[
-            round(t, 1) for t in ref_ms], share_rows=n // world,
+            round(t, 1) for t in ref_ms], share_rows=n // n_data,
             share_warm_ms=[round(t, 1) for t in share_ms])), flush=True)
 
         env = dict(os.environ, PYTHONPATH=str(REPO), WORLD_SIZE=str(world),
@@ -221,7 +255,8 @@ def main() -> int:
             env["OMP_NUM_THREADS"] = "1"
         cmd = [sys.executable, str(REPO / "data_parallel_check.py"),
                "--rank-worker", str(d), "--device", args.device,
-               "--steps", str(args.steps)] + (["--tiny"] if args.tiny else [])
+               "--steps", str(args.steps), "--model", str(args.model)] + \
+            (["--tiny"] if args.tiny else [])
         tp = time.perf_counter()
         procs = [subprocess.Popen(cmd, cwd=str(REPO), env=dict(
             env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
@@ -247,14 +282,17 @@ def main() -> int:
             return 1
         ranks = [json.loads(o.split("RANK ", 1)[1].splitlines()[0])
                  for o in outs]
-        loss, grad, buf = compare(torch, ref, torch.load(d / "rank0.pt"))
+        loss, grad, leaf, buf = compare(torch, ref,
+                                        torch.load(d / "rank0.pt"))
     ok = loss <= 1e-4 and grad <= 1.0 and buf <= 1e-5 and all(
         r["ranks_equal"] for r in ranks)
     med = sorted(ranks[0]["warm_ms"])[len(ranks[0]["warm_ms"]) // 2]
     print("RESULT " + json.dumps(dict(
-        world=world, backend="nccl" if cuda else "gloo",
-        rows_per_rank=n // world, loss_err=f"{loss:.2e}",
-        grad_err_over_tol=f"{grad:.3f}", rq_err=f"{buf:.2e}",
+        world=world, model=args.model, backend="nccl" if cuda else "gloo",
+        rows_per_rank=n // n_data, loss_err=f"{loss:.2e}",
+        grad_err_over_tol=f"{grad:.3f}", grad_worst_leaf=leaf,
+        one_process_repeat_grad_err_over_tol=f"{repeat:.3f}",
+        one_process_repeat_worst_leaf=repeat_leaf, rq_err=f"{buf:.2e}",
         ranks_equal=all(r["ranks_equal"] for r in ranks),
         warm_ms_per_rank={r["rank"]: r["warm_ms"] for r in ranks},
         world_warm_median_ms=med,

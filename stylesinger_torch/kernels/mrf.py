@@ -12,7 +12,11 @@ flagship group, in the order :func:`mrf_schedule` sets); residual adds, the
 block sum, the mean and the halo crop ride in the kernel's epilogue.  On a
 CPU tensor it runs :func:`mrf_blocks_plain`, the same arithmetic in plain
 PyTorch.  :func:`mrf_step_plain` is what one launch computes, so the
-schedule can be checked without the card.
+schedule can be checked without the card.  Both run behind the registered
+operator ``torch.ops.stylesinger.fused_mrf_blocks`` (its CUDA and CPU
+implementations, with a fake one for tracing), so ``torch.export`` records
+a call as one node of its graph and an exported program launches the
+kernel, counted as any other call (``serving/export.py``).
 
 ``compute_dtype=torch.bfloat16`` is the Pallas kernel's bf16 form (the
 recipe's ``vocoder_compute_dtype``): bf16 operands and buffers, f32 sums,
@@ -28,7 +32,7 @@ stage to this kernel: ``ResBlock1``, C <= 128 and every (k - 1) * d <= 64.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -342,6 +346,68 @@ def occupancy(c: int, k: int, d: int,
     return blocks.value, smem.value
 
 
+def _flat_weights(weights: Weights) -> List[torch.Tensor]:
+    return [t for rb in weights for step in rb for wb in step for t in wb]
+
+
+def _nested_weights(flat: Sequence[torch.Tensor], steps: Sequence[int]
+                    ) -> Weights:
+    """The inverse of :func:`_flat_weights`: ``steps`` dilation steps per
+    resblock, four tensors (w1, b1, w2, b2) per step."""
+    out, i = [], 0
+    for n in steps:
+        rb = []
+        for _ in range(n):
+            w1, b1, w2, b2 = flat[i:i + 4]
+            rb.append(((w1, b1), (w2, b2)))
+            i += 4
+        out.append(rb)
+    return out
+
+
+def _op_kwargs(kernels: Sequence[int], dilations: Sequence[int],
+               steps: Sequence[int], block: int, halo: int) -> dict:
+    flat, dils = list(dilations), []
+    for n in steps:
+        dils.append(tuple(flat[:n]))
+        flat = flat[n:]
+    return dict(kernels=tuple(kernels), dilations=dils, block=block,
+                halo=halo)
+
+
+@torch.library.custom_op("stylesinger::fused_mrf_blocks", mutates_args=(),
+                         device_types="cpu")
+def _mrf_op(xb: torch.Tensor, mask: torch.Tensor,
+            weights: List[torch.Tensor], kernels: List[int],
+            dilations: List[int], steps: List[int], block: int,
+            halo: int) -> torch.Tensor:
+    """The registered operator behind :func:`fused_mrf_blocks`, so that
+    ``torch.export`` records one graph node per call (``serving/export.py``).
+    ``weights`` flat (w1, b1, w2, b2 per step), ``dilations`` flat with
+    ``steps`` per resblock; the mode is xb's dtype.  CPU: the plain twin."""
+    plain = mrf_blocks_plain_bf16 if xb.dtype == torch.bfloat16 \
+        else mrf_blocks_plain
+    return plain(xb, mask, _nested_weights(weights, steps),
+                 **_op_kwargs(kernels, dilations, steps, block,
+                              halo)).contiguous()
+
+
+@_mrf_op.register_kernel("cuda")
+def _mrf_op_cuda(xb, mask, weights, kernels, dilations, steps, block, halo):
+    """CUDA: ``csrc/mrf.cu``, one counted launch per dilation step."""
+    bf16 = xb.dtype == torch.bfloat16
+    layout = _kernel_layout_bf16 if bf16 else _kernel_layout
+    return mrf_schedule(xb, mask, layout(_nested_weights(weights, steps),
+                                         xb.shape[2]),
+                        step=_launch_step_bf16 if bf16 else _launch_step,
+                        **_op_kwargs(kernels, dilations, steps, block, halo))
+
+
+@_mrf_op.register_fake
+def _mrf_op_fake(xb, mask, weights, kernels, dilations, steps, block, halo):
+    return xb.new_empty((xb.shape[0], block, xb.shape[2]))
+
+
 def fused_mrf_blocks(xb: torch.Tensor, mask: torch.Tensor, weights: Weights,
                      *, kernels: Sequence[int],
                      dilations: Sequence[Sequence[int]], block: int,
@@ -354,25 +420,23 @@ def fused_mrf_blocks(xb: torch.Tensor, mask: torch.Tensor, weights: Weights,
     biases are f32).  CUDA tensor: the ``csrc/mrf.cu`` kernel, one launch
     per dilation step (:func:`mrf_schedule`); it has no backward, so it
     raises while autograd records a tensor that requires grad.  CPU
-    tensor: the plain twin of that mode."""
+    tensor: the plain twin of that mode.  Either goes through the
+    operator ``torch.ops.stylesinger.fused_mrf_blocks`` (its fake
+    implementation gives ``torch.export`` the output's shape)."""
     if compute_dtype not in DTYPES:
         raise ValueError(f"fused_mrf_blocks: compute_dtype {compute_dtype} "
                          "is neither float32 nor bfloat16")
-    bf16 = compute_dtype == torch.bfloat16
-    kw = dict(kernels=kernels, dilations=dilations, block=block, halo=halo)
     if xb.device.type == "cpu":
         if xb.dtype != compute_dtype or mask.dtype != compute_dtype:
             raise ValueError(f"fused_mrf_blocks: xb and mask must be "
                              f"{compute_dtype}")
-        plain = mrf_blocks_plain_bf16 if bf16 else mrf_blocks_plain
-        return plain(xb, mask, weights, **kw)
-    if xb.device.type != "cuda":
+    elif xb.device.type == "cuda":
+        refuse_autograd("fused_mrf_blocks", [xb, mask] +
+                        _flat_weights(weights))
+        _check_args(xb, mask, weights, kernels, dilations, block, halo,
+                    compute_dtype)
+    else:
         raise ValueError(f"fused_mrf_blocks: unsupported device {xb.device}")
-    refuse_autograd("fused_mrf_blocks", [xb, mask] + [
-        t for rb in weights for step in rb for wb in step for t in wb])
-    _check_args(xb, mask, weights, kernels, dilations, block, halo,
-                compute_dtype)
-    layout = _kernel_layout_bf16 if bf16 else _kernel_layout
-    return mrf_schedule(xb, mask, layout(weights, xb.shape[2]),
-                        step=_launch_step_bf16 if bf16 else _launch_step,
-                        **kw)
+    return _mrf_op(xb, mask, _flat_weights(weights), list(kernels),
+                   [d for ds in dilations for d in ds],
+                   [len(ds) for ds in dilations], block, halo)

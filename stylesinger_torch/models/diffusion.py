@@ -83,6 +83,68 @@ class Noise:
         return self.uniform(shape) < p
 
 
+class TensorNoise:
+    """A noise source that hands out ``values``, one tensor per draw, in the
+    order the model asks for them, and raises when a draw's shape is not
+    the next tensor's.  It makes the draws arguments of a function,
+    which ``torch.export`` needs (it takes no ``torch.Generator``;
+    ``serving/export.py``).  ``draws``, the (method, arguments, dtype) of
+    each draw as ``training/graphs.py::RecordingNoise`` lists them, also
+    checks each draw's method and arguments."""
+
+    def __init__(self, values: Sequence[torch.Tensor],
+                 draws: Optional[Sequence[tuple]] = None):
+        self.values = list(values)
+        self.draws = None if draws is None else list(draws)
+        self._next = 0
+
+    def rewind(self) -> None:
+        self._next = 0
+
+    def done(self) -> bool:
+        return self._next == len(self.values)
+
+    def _take(self, kind: str, shape: tuple, *args) -> torch.Tensor:
+        i = self._next
+        if self.draws is not None and (
+                i >= len(self.draws) or self.draws[i][:2] != (kind, args)):
+            want = self.draws[i][:2] if i < len(self.draws) else "none"
+            raise RuntimeError(f"TensorNoise: draw {i} is {kind}{args}, the "
+                               f"recorded run drew {want}")
+        if i >= len(self.values):
+            raise RuntimeError(f"TensorNoise: draw {i} ({kind}{args}) is "
+                               f"past the {len(self.values)} tensors given")
+        out = self.values[i]
+        if tuple(out.shape) != shape:
+            raise RuntimeError(f"TensorNoise: draw {i} is {kind} {shape}, "
+                               f"tensor {i} is {tuple(out.shape)}")
+        self._next += 1
+        return out
+
+    def normal(self, shape):
+        shape = tuple(shape)
+        return self._take("normal", shape, shape)
+
+    def uniform(self, shape):
+        shape = tuple(shape)
+        return self._take("uniform", shape, shape)
+
+    def randint(self, shape, low, high):
+        shape = tuple(shape)
+        return self._take("randint", shape, shape, low, high)
+
+    def bernoulli(self, p, shape=()):
+        shape = tuple(shape)
+        return self._take("bernoulli", shape, p, shape)
+
+
+def draw_values(draws: Sequence[tuple], source) -> Tuple[torch.Tensor, ...]:
+    """The values ``source`` (a :class:`Noise`) draws for ``draws``, the
+    (method, arguments, dtype) of each draw in order: what the same
+    source would hand a model that draws them."""
+    return tuple(getattr(source, kind)(*args) for kind, args, _ in draws)
+
+
 def linear_beta_schedule(timesteps: int, max_beta: float) -> np.ndarray:
     return np.linspace(1e-4, max_beta, timesteps)
 
@@ -130,6 +192,9 @@ class Schedule(nn.Module):
         for name in _FIELDS:
             self.register_buffer(name, torch.as_tensor(
                 values[name].astype(np.float32)), persistent=False)
+        # the f32 buffer's values on the host, for the samplers' grids
+        self.alphas_cumprod_host = values["alphas_cumprod"].astype(
+            np.float32)
 
     @property
     def num_timesteps(self) -> int:
@@ -538,8 +603,9 @@ def sample_shallow_plms(denoise_fn: Callable, sched: Schedule,
 def dpmpp_grid(sched: Schedule, K_step: int, n_steps: int):
     """DPM-Solver++(2M)'s timestep grid (descending, unique) and its
     per-step constants [n, 3] (sigma ratio, gain, r), computed in f64 and
-    cast to f32 as the JAX sampler does."""
-    ac = sched.alphas_cumprod.detach().cpu().double().numpy()
+    cast to f32 as the JAX sampler does, from the schedule's values on the
+    host (no read from the device: a traced sampler stays one graph)."""
+    ac = sched.alphas_cumprod_host.astype(np.float64)
     ts_f = np.linspace(K_step - 1, 0, max(int(n_steps), 1))
     ts = np.unique(np.round(ts_f).astype(np.int64))[::-1]
     n = len(ts)

@@ -79,7 +79,10 @@ class SourceModuleHnNSF(nn.Module):
         rad = torch.remainder(f0_up[..., None] * harmonics /
                               self.sampling_rate, 1.0)
         rand_ini = noise.uniform((f0_up.shape[0], self.dim))
-        rand_ini[:, 0] = 0.0
+        # the fundamental starts at phase 0 (not in place: a draw may be a
+        # caller's tensor, TensorNoise)
+        rand_ini = torch.cat([torch.zeros_like(rand_ini[:, :1]),
+                              rand_ini[:, 1:]], dim=1)
         rad[:, 0, :] = rad[:, 0, :] + rand_ini
         phase = blocked_phase_cumsum(rad, self.hop_size)
         sines = torch.sin(2 * math.pi * phase) * self.sine_amp

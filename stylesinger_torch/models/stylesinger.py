@@ -33,6 +33,7 @@ phone encoder ESPnet's relative positions; a ``pitch_type`` other than
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
@@ -306,7 +307,11 @@ class StyleSinger(nn.Module):
         off), ``umln``, ``rq`` and ``diffusion``; with ``deterministic``
         only ``diffusion`` is read.  Returns, besides, style, decoder_inp
         and the model-side losses of the phase."""
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not infer):
+        grad = torch.is_grad_enabled() and not infer
+        # switch only a mode that changes (a traced switch costs torch.export
+        # a pass over the whole graph)
+        with contextlib.nullcontext() if grad == torch.is_grad_enabled() \
+                else torch.set_grad_enabled(grad):
             return self._forward(
                 txt_tokens, spk_embed, emo_embed, ref_mels, ref_f0, note,
                 note_dur, note_type, {"diffusion": noise} if infer else noise,

@@ -175,8 +175,8 @@ def train(cfg, work_dir: str, device: str = "cuda"):
                              max_sentences=cfg["max_valid_sentences"]
                              ).batches(0)
 
-    return trainer.fit(EpochBatches(train_ds, cfg, rank=mesh.rank(),
-                                    world_size=mesh.world_size()),
+    return trainer.fit(EpochBatches(train_ds, cfg, rank=mesh.data_rank(),
+                                    world_size=mesh.data_size()),
                        valid_batches)
 
 

@@ -13,7 +13,10 @@ Layout under the work dir:
   ``milestone_interval`` steps, the model alone (an eval-only payload),
   never pruned.
 
-Every file is written to a ``.part`` name and renamed into place.
+Every file is written to a ``.part`` name and renamed into place.  A model
+split over a mesh's ``model`` axis is saved gathered to its full layout and
+re-sharded on restore, so its work dir loads in one process
+(``StyleSingerInfer.load_params``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from stylesinger_torch.parallel import mesh
 from stylesinger_torch.training.step import TrainState
 
 _STEP_FILE = re.compile(r"^model_ckpt_steps_(\d+)\.pt$")
@@ -87,11 +91,18 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- save
     @staticmethod
-    def payload(state: TrainState, with_opt: bool = True) -> Dict[str, Any]:
-        out = {"model": state.model.state_dict(), "step": int(state.step)}
-        if with_opt:
-            out["opt"] = state.opt.state_dict()
-        return out
+    def payload(state: TrainState) -> Dict[str, Any]:
+        """The state in its full layout: a model split over a mesh's model
+        axis (``parallel/mesh.py::shard_params``) is gathered, its
+        parameters and optimizer moments alike, as orbax saves global
+        arrays (a collective: every rank of the model group calls it)."""
+        model = state.model
+        opt = state.opt.state_dict()
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = mesh.full_tensors(model, opt[key])
+        return {"model": mesh.full_tensors(model, model.state_dict()),
+                "step": int(state.step), "opt": opt}
 
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"model_ckpt_steps_{step}.pt")
@@ -101,7 +112,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              val_loss: Optional[float] = None) -> None:
+        """Writes the checkpoint of ``step``.  A model split over a model
+        axis is gathered first, so every rank calls this and rank 0
+        writes."""
         payload = self.payload(state)
+        if mesh.split_dims(state.model) and mesh.rank() != 0:
+            return
         payload["step"] = int(step)
         _save(payload, self._path(step))
         for old in _steps_in(self.dir)[:-self.keep]:
@@ -110,8 +126,7 @@ class CheckpointManager:
                 step % self.milestone_interval == 0 and \
                 step not in self.milestone_steps():
             os.makedirs(self.milestone_dir, exist_ok=True)
-            milestone = self.payload(state, with_opt=False)
-            milestone["step"] = int(step)
+            milestone = {k: v for k, v in payload.items() if k != "opt"}
             _save(milestone, os.path.join(self.milestone_dir,
                                           f"model_ckpt_steps_{step}.pt"))
         if self.save_best and val_loss is not None and \
@@ -155,9 +170,16 @@ class CheckpointManager:
 
     @staticmethod
     def _load_into(state: TrainState, payload: Dict[str, Any]) -> int:
-        state.model.load_state_dict(payload["model"])
+        """A full-layout payload into ``state``, each split leaf of a model
+        on a model axis re-sharded to this rank's chunk."""
+        model = state.model
+        model.load_state_dict(mesh.local_tensors(model, payload["model"]))
         if "opt" in payload:
-            state.opt.load_state_dict(payload["opt"])
+            opt = dict(payload["opt"])
+            for key in ("mu", "nu", "acc"):
+                if key in opt:
+                    opt[key] = mesh.local_tensors(model, opt[key])
+            state.opt.load_state_dict(opt)
         state.step = int(payload["step"])
         return state.step
 

@@ -43,7 +43,7 @@ from typing import (
 
 import torch
 
-from stylesinger_torch.models.diffusion import Noise
+from stylesinger_torch.models.diffusion import Noise, TensorNoise
 
 Sources = Dict[str, Any]  # name -> noise source (None: that stream is off)
 
@@ -78,56 +78,27 @@ class RecordingNoise:
         return self._draw("bernoulli", p, tuple(shape))
 
 
-class StaticNoise:
+class StaticNoise(TensorNoise):
     """A noise source that hands out one buffer per recorded draw, in the
     recorded order, raising when a draw differs from the record.
     :meth:`fill` draws a step's values into the buffers from that step's
     source (in place where it is a :class:`Noise`)."""
 
     def __init__(self, draws: Sequence[tuple], device: torch.device):
-        self.draws = list(draws)
-        self.buffers = [torch.empty(_draw_shape(kind, args), dtype=dtype,
-                                    device=device)
-                        for kind, args, dtype in self.draws]
-        self._next = 0
+        super().__init__([torch.empty(_draw_shape(kind, args), dtype=dtype,
+                                      device=device)
+                          for kind, args, dtype in draws], draws)
 
     def fill(self, source: Any) -> None:
         if source is None:
             raise ValueError("StaticNoise: this stream drew in the recorded "
                              "step and has no source now")
-        for (kind, args, _), buf in zip(self.draws, self.buffers):
+        for (kind, args, _), buf in zip(self.draws, self.values):
             if isinstance(source, Noise):
                 getattr(source, kind)(*args, out=buf)
             else:
                 buf.copy_(getattr(source, kind)(*args))
-        self._next = 0
-
-    def rewind(self) -> None:
-        self._next = 0
-
-    def done(self) -> bool:
-        return self._next == len(self.draws)
-
-    def _take(self, kind: str, *args) -> torch.Tensor:
-        i = self._next
-        if i >= len(self.draws) or self.draws[i][:2] != (kind, args):
-            want = self.draws[i][:2] if i < len(self.draws) else "none"
-            raise RuntimeError(f"StaticNoise: draw {i} is {kind}{args}, the "
-                               f"recorded step drew {want}")
-        self._next += 1
-        return self.buffers[i]
-
-    def normal(self, shape):
-        return self._take("normal", tuple(shape))
-
-    def uniform(self, shape):
-        return self._take("uniform", tuple(shape))
-
-    def randint(self, shape, low, high):
-        return self._take("randint", tuple(shape), low, high)
-
-    def bernoulli(self, p, shape=()):
-        return self._take("bernoulli", p, tuple(shape))
+        self.rewind()
 
 
 _CAPTURE_STREAMS: Dict[torch.device, Any] = {}

@@ -239,16 +239,14 @@ class Optimizer:
         written here."""
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        g_norm = mesh.global_norm(params, grads)
         if self.k > 1:
             torch._foreach_add_(self.acc, torch._foreach_div(
                 torch._foreach_sub(grads, self.acc), self.mini_step + 1))
             self.mini_step = (self.mini_step + 1) % self.k
             if self.mini_step != 0:
                 return g_norm
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(self.acc)))
+            norm = mesh.global_norm(params, self.acc)
             self._adamw(params, self.acc, norm, scalars)
             torch._foreach_zero_(self.acc)
         else:

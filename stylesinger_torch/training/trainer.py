@@ -370,7 +370,11 @@ class Trainer:
     the caller asks for the CPU; raises when CUDA is asked for and absent;
     ``cuda:LOCAL_RANK`` under a process group).  Raises on a
     ``compute_dtype`` other than float32 / bfloat16 and on a
-    ``mesh_shape`` with a ``model`` axis.  ``vocoder`` (an object with
+    ``mesh_shape`` with a ``model`` axis.  ``mesh`` (``parallel.mesh.
+    make_mesh``) becomes the process's mesh, as JAX's ``Trainer(mesh=)``:
+    the batch splits over its ``data`` axis (the caller's ``EpochBatches``
+    split by ``mesh.data_rank()``), the model is replicated (a model split
+    by ``shard_params`` raises).  ``vocoder`` (an object with
     ``spec2wav(mel, f0=...)``) adds the validation dump's audio;
     ``noise_fn(step)`` replaces each training step's noise sources
     (``step.step_noise``), on both dispatch paths.  ``scan``
@@ -380,13 +384,24 @@ class Trainer:
 
     def __init__(self, model: nn.Module, cfg: Any, work_dir: str,
                  device: Any = "cuda", vocoder: Optional[Any] = None,
-                 noise_fn: Optional[Callable[[int], Dict[str, Any]]] = None):
+                 noise_fn: Optional[Callable[[int], Dict[str, Any]]] = None,
+                 mesh: Optional[Any] = None):
+        from stylesinger_torch.parallel import mesh as _mesh  # the argument
+
         self.model = model
         self.cfg = cfg
         self.work_dir = work_dir
-        self.device = mesh.local_device(resolve_device(device))
+        self.device = _mesh.local_device(resolve_device(device))
         precision.parse(cfg.get("compute_dtype", "float32"))
-        mesh.check_mesh_shape(cfg.get("mesh_shape"))
+        if mesh is not None:
+            _mesh.use_mesh(mesh)
+        if _mesh.split_dims(model):
+            raise ValueError(
+                "Trainer: the model is split over a model axis "
+                "(shard_params); the trainer shards the batch over the data "
+                "axis only, as the JAX package's does: step a split model "
+                "with training.step.train_step")
+        _mesh.check_mesh_shape(cfg.get("mesh_shape"))
         self.ckpt = CheckpointManager(
             work_dir, keep=cfg["num_ckpt_keep"], save_best=cfg["save_best"],
             milestone_interval=cfg.get("milestone_interval", 0))

@@ -986,3 +986,71 @@ def test_graph_captures_share_one_stream(cuda):
         bound_run()
     gc.collect()
     assert torch.cuda.memory_allocated() == before
+
+
+def _tiny_synth(device, seed=0):
+    """A tiny bf16-vocoder synthesizer exported on ``device`` (mrf_block 64:
+    its stages of 128 samples and more take the MRF operator), with its
+    weights, batch and seeded draws."""
+    from stylesinger_torch.serving.export import (
+        _init_variables, export_synthesizer, noise_from_seed,
+    )
+
+    cfg = tiny_test_config(hop_size=64, mrf_block=64, max_frames=32,
+                           f0_speedup=2, dpm_steps=2,
+                           vocoder_compute_dtype="bfloat16")
+    params, voc, batch = _init_variables(cfg, 12, 1, 6, 24, device, seed)
+    ep = export_synthesizer(cfg, 12, batch=1, t_txt=6, t_ref=24,
+                            max_frames=32, device=device, variables=params,
+                            voc_variables=voc)
+    return cfg, ep, params, voc, batch, noise_from_seed(ep, 7)
+
+
+@pytest.mark.cuda
+def test_exported_synthesizer_on_the_card_launches_the_kernel(cuda,
+                                                               tmp_path):
+    """Export on cuda, save, load, call: equal to the live function on the
+    same draws (TF32 off), the MRF operator in the graph, and 9 bf16
+    launches per kernel stage, counted by the operator's CUDA
+    implementation."""
+    from stylesinger_torch.serving import (
+        load_synthesizer, make_synthesize_fn, save_synthesizer, synthesize,
+    )
+
+    cfg, ep, params, voc, batch, noise = _tiny_synth(cuda)
+    ops = [n for n in ep.graph.nodes if n.op == "call_function" and
+           n.target == torch.ops.stylesinger.fused_mrf_blocks.default]
+    assert len(ops) == 4
+    loaded = load_synthesizer(save_synthesizer(ep, str(tmp_path / "s.pt2")))
+    mrfk.counter_bf16.reset()
+    out = synthesize(loaded, params, voc, batch, noise)
+    torch.cuda.synchronize()
+    assert mrfk.counter_bf16.count == 9 * len(ops)
+    with torch.no_grad():
+        live = make_synthesize_fn(cfg, 12, 32)(params, voc, batch, noise)
+    for a, b in zip(out[:3], live[:3]):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert torch.equal(out[3], live[3])
+
+
+@pytest.mark.cuda
+def test_exported_synthesizer_on_the_card_matches_the_cpu_artifact(cuda):
+    """The same weights, batch and draws through a cuda and a cpu artifact:
+    the card's kernel against the CPU's plain twin (bf16: 1e-2 on the
+    wav, whose convs round to bf16 in another order), mel2ph equal."""
+    from stylesinger_torch.serving import synthesize
+
+    _, ep_gpu, params, voc, batch, noise = _tiny_synth(cuda)
+    _, ep_cpu, *_ = _tiny_synth("cpu")
+
+    def cpu(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+
+    g = synthesize(ep_gpu, params, voc, batch, noise)
+    c = synthesize(ep_cpu, cpu(params), cpu(voc), cpu(batch),
+                   tuple(t.cpu() for t in noise))
+    torch.testing.assert_close(g[1].cpu(), c[1], atol=1e-3, rtol=0)
+    torch.testing.assert_close(g[2].cpu(), c[2], atol=1e-3, rtol=0)
+    torch.testing.assert_close(g[0].cpu(), c[0], atol=1e-2, rtol=0)
+    assert torch.equal(g[3].cpu(), c[3])

@@ -22,7 +22,8 @@ smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 assert callable(smoke.main)
 sys.path.insert(0, ".")
-for script in ("profile_train_step", "data_parallel_check"):
+for script in ("profile_train_step", "data_parallel_check",
+               "serving_export_check"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -84,7 +85,10 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
                      "stylesinger_torch.training.graphs",
                      "stylesinger_torch.utils.meters",
                      "stylesinger_torch.utils.plot",
-                     "stylesinger_torch.utils.profiling"):
+                     "stylesinger_torch.utils.profiling",
+                     "stylesinger_torch.utils.multiprocess",
+                     "stylesinger_torch.serving",
+                     "stylesinger_torch.serving.export"):
         assert expected in names
 
 

@@ -90,9 +90,11 @@ def one_torch_thread():
 
 
 # the PRNG stream of a draw, by the file that makes it: flax's Dropout,
-# and the JAX package's UMLN, RQ and diffusion modules
+# and the JAX package's UMLN, RQ, diffusion and HiFi-GAN (its NSF source's
+# "noise" stream) modules
 _STREAM_OF_FILE = {"stochastic.py": "dropout", "umln.py": "umln",
-                   "rq.py": "rq", "diffusion.py": "diffusion"}
+                   "rq.py": "rq", "diffusion.py": "diffusion",
+                   "hifigan.py": "noise"}
 _KINDS = {"normal": "n", "uniform": "u", "randint": "i", "bernoulli": "b"}
 
 
