@@ -603,21 +603,6 @@ def expected_calls(cfg):
     return f0, mel
 
 
-def count_denoiser_calls(model) -> dict:
-    """Counts the calls of the F0 and mel denoisers (forward hooks)."""
-    calls = {"f0": 0, "mel": 0}
-
-    def hook(key):
-        def tick(*_):
-            calls[key] += 1
-        return tick
-
-    for name in ("gm_diffnet", "gm_diffnet_inpainte"):
-        getattr(model, name).register_forward_hook(hook("f0"))
-    model.postdiff.register_forward_hook(hook("mel"))
-    return calls
-
-
 def counters():
     from stylesinger_torch.kernels import mel as melk
     from stylesinger_torch.kernels import mrf as mrfk
@@ -627,30 +612,34 @@ def counters():
             "fused_mrf_blocks_bf16": mrfk.counter_bf16}
 
 
-def run_path(t0, torch, np, infer, calls, label, requests, wav_np,
-             expect):
+def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
     """Drives ``infer_once`` over ``requests``, with every launch count and
-    the denoiser-call counts set to 0 just before and read just after.
+    the denoiser-call counters (``denoiser.f0`` / ``denoiser.mel`` of
+    ``utils/profiling.py``) set to 0 just before and read just after.
     ``expect``: launches per request of each kernel.  Returns the path's
     launches."""
+    from stylesinger_torch.utils import profiling
+
     cfg = infer.cfg
     want_calls = expected_calls(cfg)
     for ctr in counters().values():
         ctr.reset()
-    calls.update(f0=0, mel=0)
+    calls = ("denoiser.f0", "denoiser.mel")
+    for name in calls:
+        profiling.set_counter(name, 0)
     lat_total = audio_total = 0.0
     for n, req in enumerate(requests):
         req = dict(req, ref_audio=wav_np)
         before = {k: c.count for k, c in counters().items()}
-        calls_before = dict(calls)
+        calls_before = [profiling.counter(name) for name in calls]
         torch.cuda.synchronize()
         tr = time.perf_counter()
         wav = infer.infer_once(req)
         torch.cuda.synchronize()
         lat = time.perf_counter() - tr
         launches = {k: c.count - before[k] for k, c in counters().items()}
-        n_calls = (calls["f0"] - calls_before["f0"],
-                   calls["mel"] - calls_before["mel"])
+        n_calls = tuple(profiling.counter(name) - b
+                        for name, b in zip(calls, calls_before))
         audio_s = wav.shape[0] / cfg["audio_sample_rate"]
         finite = bool(np.isfinite(wav).all())
         say(f"request {label} {n}", t0, phones=len(req["ph"].split()),
@@ -702,8 +691,7 @@ def phase_requests(t0, torch, np, cfg, recipe, wav_np):
         max_frames=cfg["max_frames"],
         params=n_params, dur_head="bias=log1p(mean note frames),w*0.1",
         mrf_routes=infer.vocoder.mrf_routes(cfg["max_frames"]))
-    calls = count_denoiser_calls(infer.model)
-    defaults = run_path(t0, torch, np, infer, calls, "defaults",
+    defaults = run_path(t0, torch, np, infer, "defaults",
                         requests[:1], wav_np,
                         dict(none, mel_spectrogram=1,
                              fused_mrf_blocks=stages))
@@ -713,9 +701,8 @@ def phase_requests(t0, torch, np, cfg, recipe, wav_np):
     say("model recipe", t0, vocoder_compute_dtype=recipe[
         "vocoder_compute_dtype"], mrf_routes=infer.vocoder.mrf_routes(
             recipe["max_frames"]))
-    calls = count_denoiser_calls(infer.model)
     expect = dict(none, mel_spectrogram=1, fused_mrf_blocks_bf16=stages)
-    launches = run_path(t0, torch, np, infer, calls, "recipe", requests,
+    launches = run_path(t0, torch, np, infer, "recipe", requests,
                         wav_np, expect)
     for label, fast in (("fast dpm10_f0fast5", dict(f0_speedup=5,
                                                     dpm_steps=10)),
@@ -723,8 +710,7 @@ def phase_requests(t0, torch, np, cfg, recipe, wav_np):
                                                 pndm_speedup=5))):
         saved = {k: infer.cfg[k] for k in fast}
         infer.cfg.update(fast)
-        run_path(t0, torch, np, infer, calls, label, requests, wav_np,
-                 expect)
+        run_path(t0, torch, np, infer, label, requests, wav_np, expect)
         infer.cfg.update(saved)
     launches["fused_mrf_blocks"] = defaults["fused_mrf_blocks"]
     req0 = dict(requests[0], ref_audio=wav_np)

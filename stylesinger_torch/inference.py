@@ -38,6 +38,7 @@ from stylesinger_torch.models.encoders import UtteranceEncoder, preprocess_wav
 from stylesinger_torch.models.hifigan import HifiGanGenerator
 from stylesinger_torch.models.stylesinger import StyleSinger
 from stylesinger_torch.text import TokenTextEncoder, build_token_encoder
+from stylesinger_torch.utils import profiling
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -199,6 +200,10 @@ class StyleSingerInfer:
         """Phones / notes / durations / note types + a reference clip (a
         path or a 1-D array at ``audio_sample_rate``) -> model inputs [1, ...]
         on the device."""
+        with profiling.span("frontend", n=1):
+            return self._preprocess(inp)
+
+    def _preprocess(self, inp: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         c = self.cfg
         ph = inp["ph"] if "ph" in inp else inp["text"]
         notes = inp["notes"]
@@ -211,25 +216,29 @@ class StyleSingerInfer:
         wav48 = load_wav(ref, c["audio_sample_rate"]) \
             if isinstance(ref, str) else np.asarray(ref, np.float32)
 
-        spec = wav2spec(wav48, self.device, sample_rate=c["audio_sample_rate"],
-                        n_fft=c["fft_size"], hop_size=c["hop_size"],
-                        win_length=c["win_size"],
-                        n_mels=c["audio_num_mel_bins"], fmin=c["fmin"],
-                        fmax=c["fmax"])
+        with profiling.span("frontend.mel"):
+            spec = wav2spec(wav48, self.device,
+                            sample_rate=c["audio_sample_rate"],
+                            n_fft=c["fft_size"], hop_size=c["hop_size"],
+                            win_length=c["win_size"],
+                            n_mels=c["audio_num_mel_bins"], fmin=c["fmin"],
+                            fmax=c["fmax"])
         n_mel = spec["mel"].shape[0]
-        f0_raw = extract_pitch(spec["wav"], hop_size=c["hop_size"],
-                               sample_rate=c["audio_sample_rate"],
-                               device=self.device)[:n_mel]
-        f0_raw = np.pad(f0_raw, (0, n_mel - len(f0_raw)))
-        ref_f0, _ = norm_interp_f0_np(
-            f0_raw, pitch_norm=c["pitch_norm"], use_uv=c["use_uv"],
-            f0_mean=c["f0_mean"], f0_std=c["f0_std"])
+        with profiling.span("frontend.pitch"):
+            f0_raw = extract_pitch(spec["wav"], hop_size=c["hop_size"],
+                                   sample_rate=c["audio_sample_rate"],
+                                   device=self.device)[:n_mel]
+            f0_raw = np.pad(f0_raw, (0, n_mel - len(f0_raw)))
+            ref_f0, _ = norm_interp_f0_np(
+                f0_raw, pitch_norm=c["pitch_norm"], use_uv=c["use_uv"],
+                f0_mean=c["f0_mean"], f0_std=c["f0_std"])
 
         wav16 = preprocess_wav(spec["wav"], c["audio_sample_rate"])
         spk_wav = spec["wav"].astype(np.float32) \
             if c.get("spk_embed_at_native_rate", True) else wav16
-        spk = self.spk_encoder.embed_utterance(spk_wav, project=True)
-        emo = self.emo_encoder.embed_utterance(wav16, project=False)
+        with profiling.span("frontend.embed"):
+            spk = self.spk_encoder.embed_utterance(spk_wav, project=True)
+            emo = self.emo_encoder.embed_utterance(wav16, project=False)
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype,
@@ -267,6 +276,10 @@ class StyleSingerInfer:
         defaults to a fresh ``Noise(cfg['seed'])`` for the acoustic model
         and for each request's vocoder call; when given, all of them draw
         from it in that order."""
+        with profiling.span("infer_batch", n=len(inps)):
+            return self._infer_batch(inps, noise)
+
+    def _infer_batch(self, inps: Sequence[Dict[str, Any]], noise) -> list:
         batches = [self.preprocess_input(inp) for inp in inps]
         t_txt = _fit_bucket(max(b["txt_tokens"].shape[1] for b in batches),
                             self.cfg.get("token_buckets", ()))
@@ -286,7 +299,8 @@ class StyleSingerInfer:
             return noise if noise is not None else Noise(self.cfg["seed"],
                                                          self.device)
 
-        ret = self.model(**joint, noise=fresh())
+        with profiling.span("acoustic", n=len(inps)):
+            ret = self.model(**joint, noise=fresh())
         mel, f0 = ret["mel_out"], ret["f0_denorm"]
         n_frames = (ret["mel2ph"] > 0).sum(-1).tolist()
         outs = []
@@ -296,9 +310,11 @@ class StyleSingerInfer:
                                  mel=mel[b, :0].cpu().numpy(),
                                  f0=f0[b, :0].cpu().numpy()))
                 continue
-            wav = self.vocoder(mel[b: b + 1, :t], f0[b: b + 1, :t],
-                               fresh())[0]
-            outs.append(dict(wav=wav.cpu().numpy(),
-                             mel=mel[b, :t].cpu().numpy(),
-                             f0=f0[b, :t].cpu().numpy()))
+            with profiling.span("vocoder", n=t * self.cfg["hop_size"]):
+                wav = self.vocoder(mel[b: b + 1, :t], f0[b: b + 1, :t],
+                                   fresh())[0]
+            with profiling.span("download"):
+                outs.append(dict(wav=wav.cpu().numpy(),
+                                 mel=mel[b, :t].cpu().numpy(),
+                                 f0=f0[b, :t].cpu().numpy()))
         return outs

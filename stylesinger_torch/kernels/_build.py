@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Iterable, List, Optional
 
+from stylesinger_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -170,11 +172,21 @@ def refuse_autograd(name: str, tensors: Iterable) -> None:
 
 
 class LaunchCounter:
-    """Counts the launches of one kernel (compare runs are excluded by
-    resetting before the run of interest)."""
+    """Counts the launches of one kernel in the counter ``name`` of
+    ``utils/profiling.py``'s registry (compare runs are excluded by
+    resetting before the run of interest).  A launch that a CUDA graph
+    capture records counts once; a replay runs it without the wrapper and
+    does not count (``registry()["graphs"]`` holds the replays')."""
 
-    def __init__(self) -> None:
-        self.count = 0
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    @property
+    def count(self) -> int:
+        return profiling.counter(self.name)
+
+    def add(self) -> None:
+        profiling.count(self.name)
 
     def reset(self) -> None:
-        self.count = 0
+        profiling.set_counter(self.name, 0)

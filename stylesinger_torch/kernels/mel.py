@@ -28,7 +28,7 @@ from stylesinger_torch.kernels._build import (
     LaunchCounter, check, library, refuse_autograd,
 )
 
-counter = LaunchCounter()
+counter = LaunchCounter("kernel.mel")
 MAX_N_FFT = 4096  # powers of two take the FFT, other sizes the direct DFT
 
 
@@ -121,5 +121,5 @@ def mel_spectrogram(wav: torch.Tensor, *, sample_rate: int = 48000,
         bands.data_ptr(), out.data_ptr(), n_frames, n_fft, hop_size, n_mels, eps,
         torch.cuda.current_stream(wav.device).cuda_stream)
     check(status, "mel_spectrogram")
-    counter.count += 1
+    counter.add()
     return out

@@ -46,8 +46,8 @@ BF16_SLOPE = 0.10009765625  # the slope as bf16, as jax.nn.leaky_relu uses it
 MAX_REACH = 64  # the kernel stages (k - 1) * d <= 64 extra rows
 MAX_C = 128     # a thread block holds all channels of its rows
 DTYPES = (torch.float32, torch.bfloat16)
-counter = LaunchCounter()       # launches of the f32 mode
-counter_bf16 = LaunchCounter()  # launches of the bf16 mode
+counter = LaunchCounter("kernel.mrf")            # launches of the f32 mode
+counter_bf16 = LaunchCounter("kernel.mrf_bf16")  # of the bf16 mode
 
 # per resblock, per dilation: ((kernel1 [k, C, C], bias1 [C]),
 #                              (kernel2 [k, C, C], bias2 [C]))
@@ -312,7 +312,7 @@ def _launch_step(x, mask, w1, b1, w2, b2, out, *, k: int, d: int,
         else t_len, out.shape[1], out_off, scale,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(status, "fused_mrf_blocks")
-    counter.count += 1
+    counter.add()
 
 
 def _launch_step_bf16(x, mask, w1, b1, w2, b2, out, *, k: int, d: int,
@@ -331,7 +331,7 @@ def _launch_step_bf16(x, mask, w1, b1, w2, b2, out, *, k: int, d: int,
         out.shape[1], out_off, scale,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(status, "fused_mrf_blocks")
-    counter_bf16.count += 1
+    counter_bf16.add()
 
 
 def occupancy(c: int, k: int, d: int,

@@ -53,6 +53,7 @@ from stylesinger_torch.models.fs2 import (
 )
 from stylesinger_torch.models.style import LocalStyleAdaptor, ProsodyAligner
 from stylesinger_torch.models.umln import UMLN
+from stylesinger_torch.utils import profiling
 
 _LF0_MIN = 6.0
 _LF0_MAX = 10.0
@@ -266,16 +267,19 @@ class StyleSinger(nn.Module):
         hi = torch.clamp(minmax_norm_lf0(hi), -1.0, 1.0)[..., None]
 
         def fn_a(f0_t, uv_t, t):
+            profiling.count("denoiser.f0")
             return self.gm_diffnet(f0_t, uv_t, t, inp_agnostic, nonpadding)
 
         def fn_b(f0_t, uv_t, t):
+            profiling.count("denoiser.f0")
             return self.gm_diffnet_inpainte(f0_t, uv_t, t, inp_specific,
                                             nonpadding)
 
-        (fa, ua), (fb, ub) = diff.sample_gm_dual(
-            fn_a, fn_b, self.f0_sched, inp_agnostic.shape[1],
-            inp_agnostic.shape[0], noise, dyn_clip=(lo, hi),
-            speedup=int(self.cfg.get("f0_speedup", 1)))
+        with profiling.span("acoustic.f0_diffusion"):
+            (fa, ua), (fb, ub) = diff.sample_gm_dual(
+                fn_a, fn_b, self.f0_sched, inp_agnostic.shape[1],
+                inp_agnostic.shape[0], noise, dyn_clip=(lo, hi),
+                speedup=int(self.cfg.get("f0_speedup", 1)))
         rest = (midi_notes == 0)[..., None]
         preds = []
         for f, u in ((fa, ua), (fb, ub)):
@@ -396,9 +400,13 @@ class StyleSinger(nn.Module):
     def _denoiser(self, cond, drop=None):
         """The mel denoiser on ``cond`` as ``fn(x_t, t)``; the FFT denoiser
         carries dropout."""
-        if isinstance(self.postdiff, FFTDenoiser):
-            return lambda x_t, t_: self.postdiff(x_t, t_, cond, drop)
-        return lambda x_t, t_: self.postdiff(x_t, t_, cond)
+        args = (cond, drop) if isinstance(self.postdiff, FFTDenoiser) \
+            else (cond,)
+
+        def fn(x_t, t_):
+            profiling.count("denoiser.mel")
+            return self.postdiff(x_t, t_, *args)
+        return fn
 
     def run_diffsinger(self, coarse, cond, noise):
         """Shallow mel diffusion from the coarse mel: DPM-Solver++(2M) when
@@ -409,17 +417,18 @@ class StyleSinger(nn.Module):
         coarse_norm = diff.norm_spec(coarse, self.spec_min, self.spec_max)
         speedup = int(c.get("pndm_speedup", 1) or 1)
         dpm_steps = int(c.get("dpm_steps", 0) or 0)
-        if dpm_steps > 0:
-            x = diff.sample_shallow_dpmpp(denoise_fn, self.mel_sched,
-                                          coarse_norm, noise, c["K_step"],
-                                          dpm_steps)
-        elif speedup > 1:
-            x = diff.sample_shallow_plms(denoise_fn, self.mel_sched,
-                                         coarse_norm, noise, c["K_step"],
-                                         speedup)
-        else:
-            x = diff.sample_shallow(denoise_fn, self.mel_sched, coarse_norm,
-                                    noise, c["K_step"])
+        with profiling.span("acoustic.mel_diffusion"):
+            if dpm_steps > 0:
+                x = diff.sample_shallow_dpmpp(denoise_fn, self.mel_sched,
+                                              coarse_norm, noise,
+                                              c["K_step"], dpm_steps)
+            elif speedup > 1:
+                x = diff.sample_shallow_plms(denoise_fn, self.mel_sched,
+                                             coarse_norm, noise, c["K_step"],
+                                             speedup)
+            else:
+                x = diff.sample_shallow(denoise_fn, self.mel_sched,
+                                        coarse_norm, noise, c["K_step"])
         return diff.denorm_spec(x, self.spec_min, self.spec_max)
 
     def run_prodiff(self, decoder_inp, noise, ref_mels=None, drop=None):

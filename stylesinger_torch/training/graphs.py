@@ -28,7 +28,12 @@ scalar arguments it captured.  So:
   added.  A kernel wrapper called during the capture counts the launch
   it records into the graph; a replay runs the recorded launches without
   the wrapper, so the wrapper's count does not move (a profiler sees
-  them).
+  them);
+- the registry (``utils/profiling.py``): the capture runs inside
+  ``profiling.capturing``, which keeps the counts it made, so the
+  registry's ``graphs`` entry reports them times the replays; a span
+  entered during the capture is a pair of timing events in the graph,
+  which every replay records.
 
 A failed capture or replay raises; nothing falls back to eager steps on
 the card.
@@ -44,6 +49,7 @@ from typing import (
 import torch
 
 from stylesinger_torch.models.diffusion import Noise, TensorNoise
+from stylesinger_torch.utils import profiling
 
 Sources = Dict[str, Any]  # name -> noise source (None: that stream is off)
 
@@ -125,6 +131,7 @@ class _Entry:
         self.delta = delta       # what one run adds to the host counters
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Any = None     # the graph's outputs
+        self.timing: Optional[profiling.GraphTiming] = None
 
 
 class GraphedSteps:
@@ -207,6 +214,7 @@ class GraphedSteps:
             self._check_done(entry)
             return out
         entry.graph.replay()
+        entry.timing.replayed()
         self._set([c + d for c, d in zip(self._get(), entry.delta)])
         return entry.out
 
@@ -241,8 +249,9 @@ class GraphedSteps:
         t = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with profiling.capturing(key) as entry.timing, \
+                    torch.cuda.graph(graph, pool=self._pool,
+                                     stream=self._stream):
                 entry.out = entry.fn(entry.noise)
             self._check_done(entry)
         finally:

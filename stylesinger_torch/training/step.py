@@ -41,6 +41,7 @@ from stylesinger_torch.parallel import mesh
 from stylesinger_torch.training.graphs import GraphedSteps, stack_steps
 from stylesinger_torch.training.losses import batch_sums, compute_losses
 from stylesinger_torch.training.schedules import make_schedule
+from stylesinger_torch.utils import profiling
 
 STREAMS = ("dropout", "umln", "rq", "diffusion")
 
@@ -343,19 +344,24 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     for p in params:
         p.grad = None
     with mesh.sharded(shard):
-        with precision.activation_dtype(cfg.get("compute_dtype",
-                                                "float32")):
-            ret = model(**model_inputs(batch), noise=noise, infer=False,
-                        use_rq=phase.use_rq, forcing=phase.forcing,
-                        use_diff=phase.use_diff)
-        losses = compute_losses(f32_outputs(ret), batch, cfg,
-                                use_rq=phase.use_rq, forcing=phase.forcing,
-                                use_diff=phase.use_diff)
-        total = total_loss(losses)
-        total.backward()
+        with profiling.span("train.forward", n=1):
+            with precision.activation_dtype(cfg.get("compute_dtype",
+                                                    "float32")):
+                ret = model(**model_inputs(batch), noise=noise, infer=False,
+                            use_rq=phase.use_rq, forcing=phase.forcing,
+                            use_diff=phase.use_diff)
+            losses = compute_losses(f32_outputs(ret), batch, cfg,
+                                    use_rq=phase.use_rq,
+                                    forcing=phase.forcing,
+                                    use_diff=phase.use_diff)
+            total = total_loss(losses)
+        with profiling.span("train.backward", n=1):
+            total.backward()
     if shard is not None:
         mesh.all_reduce_grads(params)
-    grad_norm = state.opt.step(params, [p.grad for p in params], scalars)
+    with profiling.span("train.optimizer", n=1):
+        grad_norm = state.opt.step(params, [p.grad for p in params],
+                                   scalars)
     state.step += 1
     keys = sorted(losses)
     values = torch.stack([losses[k].detach() for k in keys])

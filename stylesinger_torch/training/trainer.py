@@ -532,14 +532,16 @@ class Trainer:
         """Stop the traced window (JAX's: from ``profile_step`` to
         ``profile_step + profile_n_steps``, both included), write its
         trace to ``<work_dir>/profile`` and print the per-op table, time
-        per step over ``profile_n_steps``."""
+        per step over ``profile_n_steps``, then the device's idle seconds
+        by span (``train.forward`` / ``backward`` / ``optimizer``)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
         trace_dir = os.path.join(self.work_dir, "profile")
         try:
             from stylesinger_torch.utils.profiling import (
-                export_trace, format_table, latest_trace, parse_trace,
+                export_trace, format_idle, format_table, idle_by_span,
+                latest_trace, parse_trace,
             )
             export_trace(prof, trace_dir)
             tf = latest_trace(trace_dir)
@@ -548,6 +550,7 @@ class Trainer:
                 for r in rows:
                     r["per_iter_us"] = r["total_us"] / n_steps
                 print(format_table(rows, top=15))
+                print(format_idle(idle_by_span(tf)))
         except Exception as e:  # never break training over a trace
             print(f"| profile table unavailable: {e}")
 

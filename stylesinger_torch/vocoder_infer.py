@@ -36,6 +36,7 @@ from stylesinger_torch.models.hifigan import HifiGanGenerator
 from stylesinger_torch.models.legacy_vocoders import (
     MelGANGenerator, ParallelWaveGANGenerator,
 )
+from stylesinger_torch.utils import profiling
 
 GAN_STATE_FILE = "gan_state.pt"   # fit_vocoder's whole GAN state
 GENERATOR_FILE = "generator.pt"   # fit_vocoder's trained generator
@@ -118,19 +119,26 @@ class HifiGAN_NSF:
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32),
                                    device=self.device)[None]
-        return self.model(t(mel), t(f0), self._noise(noise))[0]
+        with profiling.span("vocoder.upload"):
+            mel_t, f0_t = t(mel), t(f0)
+        with profiling.span("vocoder",
+                            n=mel.shape[0] * self.cfg["hop_size"]):
+            return self.model(mel_t, f0_t, self._noise(noise))[0]
 
     @torch.no_grad()
     def spec2wav(self, mel: np.ndarray, f0: Optional[np.ndarray] = None,
                  noise=None) -> np.ndarray:
-        c = self.cfg
-        if f0 is None:
-            f0 = np.zeros(mel.shape[0], np.float32)
-        wav = self._run(mel, np.asarray(f0)[: mel.shape[0]], noise)
-        if c.get("vocoder_denoise_c", 0.0) > 0:
-            wav = denoise(wav, c["vocoder_denoise_c"], n_fft=c["fft_size"],
-                          hop_size=c["hop_size"], win_length=c["win_size"])
-        return wav.cpu().numpy()
+        with profiling.span("spec2wav", n=1):
+            c = self.cfg
+            if f0 is None:
+                f0 = np.zeros(mel.shape[0], np.float32)
+            wav = self._run(mel, np.asarray(f0)[: mel.shape[0]], noise)
+            if c.get("vocoder_denoise_c", 0.0) > 0:
+                wav = denoise(wav, c["vocoder_denoise_c"],
+                              n_fft=c["fft_size"], hop_size=c["hop_size"],
+                              win_length=c["win_size"])
+            with profiling.span("vocoder.download"):
+                return wav.cpu().numpy()
 
     @torch.no_grad()
     def spec2wav_streaming(self, mel: np.ndarray,

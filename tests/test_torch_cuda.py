@@ -1054,3 +1054,127 @@ def test_exported_synthesizer_on_the_card_matches_the_cpu_artifact(cuda):
     torch.testing.assert_close(g[2].cpu(), c[2], atol=1e-3, rtol=0)
     torch.testing.assert_close(g[0].cpu(), c[0], atol=1e-2, rtol=0)
     assert torch.equal(g[3].cpu(), c[3])
+
+
+# ------------------------------------------------ spans and counters
+
+@pytest.fixture
+def fresh_registry():
+    from stylesinger_torch.utils import profiling
+
+    profiling.reset()
+    yield profiling
+    profiling.reset()
+
+
+def _bf16_mrf_step(cuda, c=64, t=300, seed=0):
+    """A step function that launches the bf16 MRF kernel: (fn, launches
+    per call)."""
+    rk, rd = (3, 5), ((1, 2), (1, 3))
+    halo = max(ResBlock1.halo(k, d) for k, d in zip(rk, rd))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((2, t, c), generator=gen, device=cuda)
+    xb, mask, _ = _blockify(x.to(torch.bfloat16), 64, halo)
+    weights = [[tuple((torch.randn((k, c, c), generator=gen, device=cuda)
+                       / math.sqrt(k * c),
+                       0.1 * torch.randn((c,), generator=gen, device=cuda))
+                      for _ in range(2)) for _ in ds]
+               for k, ds in zip(rk, rd)]
+
+    @torch.no_grad()
+    def fn(noise):
+        return mrfk.fused_mrf_blocks(xb, mask, weights, kernels=rk,
+                                     dilations=rd, block=64, halo=halo,
+                                     compute_dtype=torch.bfloat16)
+    return fn, sum(len(d) for d in rd)
+
+
+@pytest.mark.cuda
+def test_graph_replays_report_the_launches_their_capture_recorded(
+        cuda, fresh_registry):
+    """``GraphedSteps``: the eager first run and the capture each count
+    the step's launches, and W replays move the wrapper's counter no
+    further; the registry's ``graphs`` entry reports the capture's
+    launches and W x them as the replays'."""
+    import types
+
+    from stylesinger_torch.training.graphs import GraphedSteps
+
+    fn, per_call = _bf16_mrf_step(cuda)
+    state = types.SimpleNamespace(device=cuda)
+    graphs = GraphedSteps(lambda st: ())
+    graphs.bind(state, fn)
+    before = mrfk.counter_bf16.count
+    graphs.run("step", fn, {})
+    assert list(graphs.capture_seconds) == ["step"]
+    assert mrfk.counter_bf16.count == before + 2 * per_call
+    w = 4
+    for _ in range(w):
+        graphs.run("step", fn, {})
+    torch.cuda.synchronize()
+    assert mrfk.counter_bf16.count == before + 2 * per_call
+    reg = fresh_registry.registry()
+    step = reg["graphs"]["step"]
+    assert step["replays"] == w
+    assert step["counts"] == {"kernel.mrf_bf16": per_call}
+    assert step["replayed"] == {"kernel.mrf_bf16": w * per_call}
+    assert reg["counters"]["kernel.mrf_bf16"] == mrfk.counter_bf16.count
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_carry_device_seconds(cuda, fresh_registry):
+    """Spans on CUDA record a pair of timing events: device seconds
+    resolve when the registry is read, and a span whose work the host
+    waits for has host seconds at least its device seconds."""
+    profiling = fresh_registry
+    a = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    with profiling.spans():
+        with profiling.span("matmuls", n=8):
+            for _ in range(8):
+                a = (a @ a).clamp_(-1, 1)
+        torch.cuda.synchronize()
+        with profiling.span("copy"):
+            a.cpu()
+    s = profiling.registry()["spans"]
+    assert s["matmuls"]["calls"] == 1 and s["matmuls"]["n"] == 8
+    assert s["matmuls"]["device_s"] > 0 and s["copy"]["device_s"] > 0
+    assert s["copy"]["host_s"] >= s["copy"]["device_s"] * 0.5
+
+
+@pytest.mark.cuda
+def test_captured_train_step_spans_resolve_after_a_replay(cuda, tmp_path,
+                                                          fresh_registry):
+    """``make_train_scan`` on the tiny model: the capture records
+    ``train.forward`` / ``backward`` / ``optimizer`` as external events in
+    the graph; after a replay each reads > 0 device seconds, and their sum
+    is below the replay's wall time."""
+    import time
+
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+    from stylesinger_torch.training.trainer import Trainer
+
+    profiling = fresh_registry
+    cfg = tiny_test_config(forcing=0, rq_start=-1, diff_start=-1,
+                           steps_per_dispatch=2)
+    trainer = Trainer(StyleSinger(cfg, 20), cfg, str(tmp_path), device=cuda)
+    stacked, _ = trainer._stack_batches([_tiny_train_batch(cfg)])
+    state = ts.init_state(StyleSinger(cfg, 20).to(cuda), cfg)
+    scan = ts.make_train_scan(cfg)
+    phase = ts.phase_for_step(0, cfg)
+    scan(state, stacked, [0], phase)           # eager, then the capture
+    profiling.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scan(state, stacked, [0], phase)           # one replay
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    graphs = profiling.registry()["graphs"]
+    assert len(graphs) == 1
+    (g,) = graphs.values()
+    assert g["replays"] == 1
+    split = [g["spans"][k] for k in ("train.forward", "train.backward",
+                                      "train.optimizer")]
+    assert all(v is not None and v > 0 for v in split), split
+    assert sum(split) < wall
