@@ -16,7 +16,10 @@ Phases, each printed on its own line with its elapsed seconds:
    per call, time per call (``ms``: CUDA events around one call, median),
    the twin's time, and the least time the card could take (``bound_ms``,
    with the peak it is taken against): the mel kernel, the MRF kernel's
-   f32 mode and its bf16 mode (with the blocks that fit on an SM);
+   f32 mode and its bf16 mode (with the blocks that fit on an SM), and
+   the denoisers' residual-layer kernel over the F0 and mel nets' layers
+   and one sampler step's 40 of them (``library_ms``: cuDNN's f32 convs
+   of the same layers);
 2. zero-shot requests through ``StyleSingerInfer.infer_once`` on
    flagship-width models with seeded random weights, path by path, each
    with every launch count and the denoiser-call counts set to 0 just
@@ -25,7 +28,9 @@ Phases, each printed on its own line with its elapsed seconds:
      launch the mel kernel once and the f32 MRF mode 27 times;
    - ``recipe`` (``load_config(recipe="stylesinger")``, the repo's recipe:
      bf16 vocoder, 100-step samplers): three requests, each 1 mel and 27
-     bf16-mode MRF launches and 2 x 100 + 100 denoiser calls;
+     bf16-mode MRF launches and 2 x 100 + 100 denoiser calls (every path
+     also counts its residual-layer kernel launches: 10 per F0 and 20 per
+     mel denoiser call, 4,000 a 100-step request);
    - ``fast dpm10_f0fast5`` (the recipe with ``f0_speedup=5,
      dpm_steps=10``) and ``fast fast_both`` (``f0_speedup=5,
      pndm_speedup=5``): three requests each, with 2 x 20 + 10 and
@@ -261,6 +266,7 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 BUILD_LIMIT_S = 60.0
 MEL_TOL = dict(atol=3e-3, rtol=2e-3)
 MRF_REL_TOL = 1e-4       # of max|y|: the kernel sums in another order
+DIFFNET_REL_TOL = 1e-5   # of max|y|: 3xTF32, summed in another order
 TEST_IDS = (0, 2, 3)      # test split: the items run.py test synthesizes
 MRF_BF16_ULPS = 2        # bf16 ulps of max|y|: an f32 sum in another order
                          # can land across a bf16 rounding
@@ -562,6 +568,160 @@ def phase_mrf(t0, torch, np, cfg, bf16=False):
     return entry, timed
 
 
+def phase_diffnet(t0, torch, cfg):
+    """The denoisers' residual-layer kernel at the recipe's shapes (16 x
+    ``max_frames`` rows; the F0 net's and the mel net's widths and layers,
+    each layer with its own weights and conditioner projection at its
+    dilation in the cycle).  Each dilation's layer against the plain twin
+    (``DIFFNET_REL_TOL`` of max|y|, the output and the skip sum).  Timed
+    with CUDA events around the whole call: each net's layers as one
+    denoiser call runs them, and one sampler step of a request (``ms``:
+    the layers of two F0 calls and one mel call, 40 launches, a hundredth
+    of a 100-step request's), on the kernel, on the twin (``plain_ms``)
+    and as cuDNN's f32 dilated and output convs of the same layers
+    (``library_ms``, the yardstick; the port never calls them for this
+    layer).  The conditioner projection is made once per chain on every
+    side, so no side's time holds it.  The bound: the f32 products as
+    3xTF32 at 495 / 3 TFLOP/s, or x, cp, out and skips (read and written)
+    and the weights once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from stylesinger_torch.kernels import diffnet as dk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, t = 16, cfg["max_frames"]
+    n, hidden = b * t, cfg["hidden_size"]
+    worst_abs = worst_rel = 0.0
+    timed, nets = [], {}
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for net, c, n_layers, cycle in (
+            ("f0", cfg["f0_residual_channels"], cfg["f0_residual_layers"],
+             cfg["f0_dilation_cycle_length"]),
+            ("mel", cfg["residual_channels"], cfg["residual_layers"],
+             cfg["dilation_cycle_length"])):
+        cond = r(b, t, hidden)
+        layers = []
+        for i in range(n_layers):
+            w_dil, w_out = (r(2 * c, c, 3, scale=(3 * c) ** -0.5),
+                            r(2 * c, c, 1, scale=c ** -0.5))
+            b_dil, b_out = r(2 * c, scale=0.1), r(2 * c, scale=0.1)
+            cp = dk.cond_projection(cond, r(2 * c, hidden, 1,
+                                            scale=hidden ** -0.5),
+                                    r(2 * c, scale=0.1), b_dil)
+            layers.append(dict(cp=cp, w_dil=w_dil, w_out=w_out, b_dil=b_dil,
+                               b_out=b_out, dilation=2 ** (i % cycle)))
+        x, pstep, skips = r(b, t, c), r(b, c), r(b, t, c)
+        net_abs = net_rel = 0.0
+        for lay in layers[:cycle]:  # each dilation of the cycle once
+            args = (x, pstep, lay["cp"], lay["w_dil"], lay["w_out"],
+                    lay["b_out"])
+            want_s, got_s = skips.clone(), skips.clone()
+            want = dk.layer_plain(*args, want_s, dilation=lay["dilation"],
+                                  first=False)
+            before = dk.counter.count
+            got = dk.diffnet_layer(*args, got_s, dilation=lay["dilation"],
+                                   first=False)
+            per_call = dk.counter.count - before
+            torch.cuda.synchronize()
+            errs = [((g - w).abs().max(), w.abs().max())
+                    for g, w in ((got, want), (got_s, want_s))]
+            err_abs = max(float(e) for e, _ in errs)
+            err_rel = max(float(e / m) for e, m in errs)
+            require(err_rel <= DIFFNET_REL_TOL and per_call == 1,
+                    f"diffnet {net} d={lay['dilation']}: rel err "
+                    f"{err_rel:.2e}, {per_call} launches")
+            net_abs, net_rel = max(net_abs, err_abs), max(net_rel, err_rel)
+
+        def stack(layer_fn, x=x, pstep=pstep, layers=layers, c=c):
+            """The net's residual layers as one denoiser call runs them."""
+            y, acc = x, torch.empty((b, t, c), device=dev)
+            for i, lay in enumerate(layers):
+                y = layer_fn(y, pstep, lay["cp"], lay["w_dil"],
+                             lay["w_out"], lay["b_out"], acc,
+                             dilation=lay["dilation"], first=i == 0)
+            return y
+
+        x_ncw, g_ncw = r(b, c, t), r(b, c, t)
+
+        def library(layers=layers, x_ncw=x_ncw, g_ncw=g_ncw):
+            for lay in layers:
+                d = lay["dilation"]
+                F.conv1d(x_ncw, lay["w_dil"], lay["b_dil"], padding=d,
+                         dilation=d)
+                F.conv1d(g_ncw, lay["w_out"], lay["b_out"])
+
+        call = functools.partial(stack, dk.diffnet_layer)
+        plain = functools.partial(stack, dk.layer_plain)
+        ms, plain_ms, lib_ms = (time_ms(torch, call, 10),
+                                time_ms(torch, plain, 10),
+                                time_ms(torch, library, 10))
+        flops = 2.0 * n * 4 * c * 2 * c * n_layers
+        nbytes = 4.0 * n_layers * (n * c * 4 + n * 2 * c + 4 * c * 2 * c
+                                   + 2 * c)
+        b_ms, b_by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        say(f"kernel diffnet {net} C={c}", t0, rows=n, layers=n_layers,
+            dilations=",".join(str(lay["dilation"]) for lay in layers),
+            max_abs_err=f"{net_abs:.3e}", rel_err=f"{net_rel:.2e}",
+            tol=f"{DIFFNET_REL_TOL:g}*max|y|", launches_per_call=n_layers,
+            ms=f"{ms:.4f}", ms_per_layer=f"{ms / n_layers:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, peak="3xTF32 495e12/3",
+            flop=f"{flops:.3e}", tflops_f32=f"{flops / ms / 1e9:.2f}",
+            share_of_bound=f"{b_ms / ms:.3f}",
+            share_of_tf32_peak=f"{flops / PEAK_TF32_FLOPS * 1e3 / ms:.3f}")
+        timed.append((f"diffnet {net} C={c}", call, plain))
+        nets[net] = dict(call=call, plain=plain, library=library,
+                         bound_ms=b_ms, flops=3 * flops, bytes=nbytes)
+        worst_abs, worst_rel = max(worst_abs, net_abs), max(worst_rel,
+                                                            net_rel)
+    order = ("f0", "f0", "mel")  # one sampler step: two F0 calls, one mel
+
+    def step(kind):
+        return lambda: [nets[k][kind]() for k in order]
+
+    call, plain = step("call"), step("plain")
+    ms, plain_ms, lib_ms = (time_ms(torch, call, 10),
+                            time_ms(torch, plain, 10),
+                            time_ms(torch, step("library"), 10))
+    b_ms = sum(nets[k]["bound_ms"] for k in order)
+    _, by = bound_ms(sum(nets[k]["flops"] for k in order),
+                     sum(nets[k]["bytes"] for k in order), PEAK_TF32_FLOPS)
+    launches = sum({"f0": cfg["f0_residual_layers"],
+                    "mel": cfg["residual_layers"]}[k] for k in order)
+    say("kernel diffnet step", t0, calls="f0,f0,mel",
+        launches_per_call=launches, max_abs_err=f"{worst_abs:.3e}",
+        max_rel_err=f"{worst_rel:.2e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=by,
+        share_of_bound=f"{b_ms / ms:.3f}")
+    timed.append(("diffnet step", call, plain))
+    entry = dict(name="diffnet_layer", route="cuda",
+                 source="stylesinger_torch/csrc/diffnet.cu",
+                 replaces="none (XLA: stylesinger_tpu/models/diffnet.py)",
+                 max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+    return entry, timed
+
+
+def diffnet_launches(cfg):
+    """Residual-layer kernel launches per request: every denoiser call
+    runs its layers on the kernel when their widths are the kernel's."""
+    from stylesinger_torch.kernels.diffnet import takes_layer
+
+    f0, mel = expected_calls(cfg)
+    cycle = [(cfg["f0_residual_channels"], cfg["f0_residual_layers"],
+              cfg["f0_dilation_cycle_length"]),
+             (cfg["residual_channels"], cfg["residual_layers"],
+              cfg["dilation_cycle_length"])]
+    per_call = [sum(takes_layer(c, 3, 2 ** (i % k)) for i in range(n))
+                for c, n, k in cycle]
+    return f0 * per_call[0] + mel * per_call[1]
+
+
 def make_infer(cfg, phones, device, seed, frames=None):
     """A seeded random-weight model.  Random weights give ~0-frame phones,
     so the duration head is set to log(1 + frames) (default: the mean note
@@ -618,12 +778,15 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
     ``utils/profiling.py``) set to 0 just before and read just after.
     ``expect``: launches per request of each kernel.  Returns the path's
     launches."""
+    from stylesinger_torch.kernels import diffnet as dk
     from stylesinger_torch.utils import profiling
 
     cfg = infer.cfg
     want_calls = expected_calls(cfg)
+    want_layers = diffnet_launches(cfg)
     for ctr in counters().values():
         ctr.reset()
+    dk.counter.reset()
     calls = ("denoiser.f0", "denoiser.mel")
     for name in calls:
         profiling.set_counter(name, 0)
@@ -631,6 +794,7 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
     for n, req in enumerate(requests):
         req = dict(req, ref_audio=wav_np)
         before = {k: c.count for k, c in counters().items()}
+        layers_before = dk.counter.count
         calls_before = [profiling.counter(name) for name in calls]
         torch.cuda.synchronize()
         tr = time.perf_counter()
@@ -638,6 +802,7 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
         torch.cuda.synchronize()
         lat = time.perf_counter() - tr
         launches = {k: c.count - before[k] for k, c in counters().items()}
+        layers = dk.counter.count - layers_before
         n_calls = tuple(profiling.counter(name) - b
                         for name, b in zip(calls, calls_before))
         audio_s = wav.shape[0] / cfg["audio_sample_rate"]
@@ -650,6 +815,7 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
             finite=finite, mel_launches=launches["mel_spectrogram"],
             mrf_launches=launches["fused_mrf_blocks"],
             mrf_bf16_launches=launches["fused_mrf_blocks_bf16"],
+            diffnet_launches=layers,
             denoiser_calls_f0=n_calls[0], denoiser_calls_mel=n_calls[1])
         require(finite and wav.ndim == 1 and wav.shape[0] > 0,
                 f"request {label} {n}: bad output {wav.shape}")
@@ -659,6 +825,9 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
         require(n_calls == want_calls,
                 f"request {label} {n}: denoiser calls {n_calls}, expected "
                 f"{want_calls}")
+        require(layers == want_layers,
+                f"request {label} {n}: {layers} residual-layer launches, "
+                f"expected {want_layers}")
         lat_total += lat
         audio_total += audio_s
     say(f"path {label}", t0, requests=len(requests),
@@ -666,6 +835,7 @@ def run_path(t0, torch, np, infer, label, requests, wav_np, expect):
         rtf=f"{lat_total / audio_total:.4f}",
         denoiser_calls_per_request=sum(want_calls))
     launches = {k: c.count for k, c in counters().items()}
+    launches["diffnet_layer"] = dk.counter.count
     breakdown(t0, torch, infer, dict(requests[0], ref_audio=wav_np),
               label=f"breakdown {label} request 0")
     return launches
@@ -3658,8 +3828,10 @@ def phase_legacy_vocoders(t0, torch, np, smi, wav_np):
 
 def phase_diffnet_variants(t0, torch, np, smi):
     """F0DiffNet and MDiffNet: tiny on the card against the CPU, then one
-    forward each at 10 layers x 192 channels over 1024 frames."""
+    forward each at 10 layers x 192 channels over 1024 frames, which runs
+    each residual layer on the layer kernel (10 launches)."""
     from stylesinger_torch.inference import init_random_
+    from stylesinger_torch.kernels import diffnet as dk
     from stylesinger_torch.models.diffnet import F0DiffNet, MDiffNet
 
     def inputs(device, t, cond_dim, uv, seed=SEED):
@@ -3687,11 +3859,15 @@ def phase_diffnet_variants(t0, torch, np, smi):
         init_random_(big, torch.Generator().manual_seed(SEED), conv_std=0.05)
         args = inputs("cuda", 1024, 256, uv)
         _reset_counts()
+        dk.counter.reset()
         with torch.no_grad():
             out = big(*args)
+            layers = dk.counter.count
             ms = time_ms(torch, lambda: big(*args), iters=10)
             fields[f"{name}_ms"] = f"{ms:.3f}"
+            fields[f"{name}_diffnet_launches"] = layers
         require(bool(torch.isfinite(out).all()), f"{name}: non-finite")
+        require(layers == 10, f"{name}: {layers} layer-kernel launches")
         _no_kernel(name)
     say("diffnet variants", t0, gpu=repr(smi), tol=f"{FAMILY_TOL:g}",
         frames=1024, **{f"{k}_small_err": f"{v:.2e}" for k, v in errs.items()},
@@ -3835,7 +4011,8 @@ def main() -> int:
         mel, mel_timed = phase_mel(t0, torch, np, wav_np)
         mrf, mrf_timed = phase_mrf(t0, torch, np, cfg)
         mrf16, mrf16_timed = phase_mrf(t0, torch, np, recipe, bf16=True)
-        kernels = [mel, mrf, mrf16]
+        diffnet, diffnet_timed = phase_diffnet(t0, torch, recipe)
+        kernels = [mel, mrf, mrf16, diffnet]
         launches, infer, again = phase_requests(t0, torch, np, cfg, recipe,
                                                 wav_np)
         phase_streaming(t0, torch, np, infer, wav_np)
@@ -3867,7 +4044,8 @@ def main() -> int:
             phase_serving_export(t0, torch, np, dict(
                 recipe, f0_speedup=5, dpm_steps=10), "dpm10_f0fast5",
                 wav_np, root)
-        phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed)
+        phase_device(t0, torch, mel_timed + mrf_timed + mrf16_timed +
+                     diffnet_timed)
         again(label="breakdown recipe request 0 after profiling")
         phase_dispatch_timing(t0, torch, np, smi)
     except Failure as e:

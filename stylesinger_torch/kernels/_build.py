@@ -151,6 +151,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ss_mrf_step_bf16.restype = i
     lib.ss_mrf_occupancy.argtypes = [i, i, i, i, p, p]
     lib.ss_mrf_occupancy.restype = i
+    lib.ss_diffnet_layer.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.ss_diffnet_layer.restype = i
 
 
 def check(status: int, name: str) -> None:

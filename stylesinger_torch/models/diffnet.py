@@ -3,19 +3,45 @@ the DiffWave-style ``DiffNet`` (mel), ``DDiffNet`` (joint f0 + uv),
 ``F0DiffNet`` (f0 alone) and ``MDiffNet`` (uv alone), and the transformer
 ``FFTDenoiser`` (mel, ``diff_decoder_type: fft``).  Under
 ``compute_dtype: bfloat16`` the layers take the compute dtype where the JAX
-layers do (``models/precision.py``); the output heads stay f32."""
+layers do (``models/precision.py``); the output heads stay f32.
+
+For inference a residual layer goes to the CUDA kernel of
+``kernels/diffnet.py`` when the layer's shape and its tensors allow
+(``ResidualBlock.takes_kernel``); a sampler's caller enters
+:func:`cond_cache` around its chain, so that each layer projects the
+unchanging conditioner once per chain."""
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stylesinger_torch.kernels import diffnet as layer_kernel
 from stylesinger_torch.models import precision
 from stylesinger_torch.models.common import Conv, Dense, FastspeechDecoder
 from stylesinger_torch.models.precision import const
+
+_COND_CACHE: Optional[dict] = None  # inside cond_cache(): layer -> (cond, cp)
+
+
+@contextlib.contextmanager
+def cond_cache():
+    """Inside, a residual layer on the kernel keeps its conditioner
+    projection (``kernels/diffnet.py::cond_projection``) for the ``cond``
+    tensor it was computed from and reuses it while it is called with that
+    same tensor: the sampler's chain calls every layer with one ``cond``
+    at every step.  Entered around a chain by its caller."""
+    global _COND_CACHE
+    old, _COND_CACHE = _COND_CACHE, {}
+    try:
+        yield
+    finally:
+        _COND_CACHE = old
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -65,6 +91,41 @@ class ResidualBlock(nn.Module):
         y = self.output_projection(y)
         return (x + y[..., :c]) / const(math.sqrt(2.0), y.dtype), y[..., c:]
 
+    def takes_kernel(self, x, cond, step_emb) -> bool:
+        """Whether this call goes to the kernel: its shape
+        (``layer_kernel.takes_layer``) and its tensors
+        (``layer_kernel.engages``) allow."""
+        conv = self.dilated_conv
+        return (layer_kernel.takes_layer(self.channels, conv.weight.shape[-1],
+                                         conv.dilation) and
+                layer_kernel.engages([x, cond, step_emb,
+                                      *self.parameters()]))
+
+    def fused(self, x, cond, step_emb, skips):
+        """The layer on the kernel: returns its output, and the skip sum
+        with this layer's skip added (in place; ``skips`` a float starts
+        the sum)."""
+        x = x.contiguous()
+        first = not isinstance(skips, torch.Tensor)
+        if first:
+            skips = torch.empty_like(x)
+        cache = _COND_CACHE
+        hit = None if cache is None else cache.get(id(self))
+        if hit is not None and hit[0] is cond:
+            cp = hit[1]
+        else:
+            cp = layer_kernel.cond_projection(
+                cond, self.conditioner_projection.weight,
+                self.conditioner_projection.bias, self.dilated_conv.bias)
+            if cache is not None:
+                cache[id(self)] = (cond, cp)
+        x = layer_kernel.diffnet_layer(
+            x, self.diffusion_projection(step_emb), cp,
+            self.dilated_conv.weight, self.output_projection.weight,
+            self.output_projection.bias, skips,
+            dilation=self.dilated_conv.dilation, first=first)
+        return x, skips
+
 
 class _Stack(nn.Module):
     """The residual stack shared by both denoisers."""
@@ -84,7 +145,11 @@ class _Stack(nn.Module):
         step_emb = self.mlp(t)
         skips = 0.0
         for i in range(self.residual_layers):
-            x, skip = getattr(self, f"residual_{i}")(x, cond, step_emb)
+            layer = getattr(self, f"residual_{i}")
+            if layer.takes_kernel(x, cond, step_emb):
+                x, skips = layer.fused(x, cond, step_emb, skips)
+                continue
+            x, skip = layer(x, cond, step_emb)
             skips = skips + skip
         x = F.relu(self.skip_projection(
             skips / const(math.sqrt(self.residual_layers), skips.dtype)))

@@ -47,7 +47,9 @@ from stylesinger_torch.models.common import (
     Dense, DurationPredictor, Embedding, FastspeechDecoder, FastspeechEncoder,
     PitchPredictor, SinusoidalPositionalEmbedding,
 )
-from stylesinger_torch.models.diffnet import DDiffNet, DiffNet, FFTDenoiser
+from stylesinger_torch.models.diffnet import (
+    DDiffNet, DiffNet, FFTDenoiser, cond_cache,
+)
 from stylesinger_torch.models.fs2 import (
     DVEC_DIM, expand_states, grad_scale, predict_mel2ph,
 )
@@ -275,7 +277,7 @@ class StyleSinger(nn.Module):
             return self.gm_diffnet_inpainte(f0_t, uv_t, t, inp_specific,
                                             nonpadding)
 
-        with profiling.span("acoustic.f0_diffusion"):
+        with profiling.span("acoustic.f0_diffusion"), cond_cache():
             (fa, ua), (fb, ub) = diff.sample_gm_dual(
                 fn_a, fn_b, self.f0_sched, inp_agnostic.shape[1],
                 inp_agnostic.shape[0], noise, dyn_clip=(lo, hi),
@@ -417,7 +419,7 @@ class StyleSinger(nn.Module):
         coarse_norm = diff.norm_spec(coarse, self.spec_min, self.spec_max)
         speedup = int(c.get("pndm_speedup", 1) or 1)
         dpm_steps = int(c.get("dpm_steps", 0) or 0)
-        with profiling.span("acoustic.mel_diffusion"):
+        with profiling.span("acoustic.mel_diffusion"), cond_cache():
             if dpm_steps > 0:
                 x = diff.sample_shallow_dpmpp(denoise_fn, self.mel_sched,
                                               coarse_norm, noise,

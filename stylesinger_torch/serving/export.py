@@ -23,16 +23,20 @@ with its diffusion samplers and the NSF HiFi-GAN vocoder, the body of
   ``noise=Noise(seed)`` computes;
 - is for one device (``cuda`` unless the caller asks for ``cpu``), where
   a JAX artifact can carry several platforms' lowerings.  On ``cuda`` its
-  vocoder stages launch the MRF kernel: the kernel is the registered
-  operator ``stylesinger::fused_mrf_blocks`` (``kernels/mrf.py``), one
-  node of the graph per call, counted per launch as any call.
+  vocoder stages launch the MRF kernel, the registered operator
+  ``stylesinger::fused_mrf_blocks`` (``kernels/mrf.py``), and the
+  denoisers' residual layers at widths the layer kernel takes launch it,
+  the registered operator ``stylesinger::diffnet_layer``
+  (``kernels/diffnet.py``): one node of the graph per call, counted per
+  launch as any call.
 
-Loading an artifact needs that operator's registration, i.e. this package
-installed (``load_synthesizer`` imports it), but not the model code, where
-JAX's StableHLO artifact needs no package at all.  Export under
-``torch.no_grad()`` with detached weights: with autograd on, the vocoder
-would take its resblock modules instead of the kernel
-(``HifiGanGenerator.mrf_route``).
+Loading an artifact needs those operators' registrations, i.e. this
+package installed (``load_synthesizer`` imports it), but not the model
+code, where JAX's StableHLO artifact needs no package at all.  Export
+under ``torch.no_grad()`` with detached weights: with autograd on, the
+vocoder would take its resblock modules instead of the kernel
+(``HifiGanGenerator.mrf_route``), and the denoisers their module layers
+(``models/diffnet.py::ResidualBlock.takes_kernel``).
 
 Usage::
 
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from stylesinger_torch.kernels import diffnet  # noqa: F401  registers the op
 from stylesinger_torch.kernels import mrf  # noqa: F401  registers the op
 from stylesinger_torch.models.diffusion import (
     Noise, TensorNoise, draw_values,

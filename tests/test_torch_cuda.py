@@ -15,6 +15,7 @@ import torch
 
 from stylesinger_torch.config import tiny_test_config
 from stylesinger_torch.inference import init_random_
+from stylesinger_torch.kernels import diffnet as dk
 from stylesinger_torch.kernels import mel as melk
 from stylesinger_torch.kernels import mrf as mrfk
 from stylesinger_torch.models.diffusion import Noise
@@ -186,6 +187,162 @@ class _CpuDraws:
 
     def bernoulli(self, p, shape=()):
         return self.noise.bernoulli(p, shape).to(self.device)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [192, 256])
+def test_diffnet_layer_kernel_matches_twin(cuda, c, d):
+    """The recipe's 16 x 3000 rows at the F0 (192) and mel (256) widths,
+    each dilation of the cycle: the kernel through the operator against
+    the plain twin (cuDNN f32, TF32 off), the layer's output and the skip
+    sum (the first layer's write and a later layer's add) within 1e-5 of
+    their max, one counted launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(c + d)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * scale
+
+    w_dil, w_out = r(2 * c, c, 3, scale=(3 * c) ** -0.5), \
+        r(2 * c, c, 1, scale=c ** -0.5)
+    b_out, x, pstep = r(2 * c, scale=0.1), r(16, 3000, c), r(16, c)
+    cp, skips = r(16, 3000, 2 * c), r(16, 3000, c)
+    dk.counter.reset()
+    for first in (True, False):
+        want_s, got_s = skips.clone(), skips.clone()
+        want = dk.layer_plain(x, pstep, cp, w_dil, w_out, b_out, want_s,
+                              dilation=d, first=first)
+        got = dk.diffnet_layer(x, pstep, cp, w_dil, w_out, b_out, got_s,
+                               dilation=d, first=first)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, (first, _rel(got, want))
+        assert _rel(got_s, want_s) <= 1e-5, (first, _rel(got_s, want_s))
+    assert dk.counter.count == 2
+
+
+@pytest.mark.cuda
+def test_diffnet_layer_refuses_autograd(cuda):
+    """The layer kernel has no backward: on CUDA tensors the wrapper raises
+    while autograd records a weight or an input that requires grad, and
+    runs under no_grad."""
+    c, t = 64, 40
+    args = [torch.randn(2, t, c, device=cuda), torch.randn(2, c, device=cuda),
+            torch.randn(2, t, 2 * c, device=cuda),
+            torch.randn(2 * c, c, 3, device=cuda) / 14,
+            torch.randn(2 * c, c, 1, device=cuda) / 8,
+            torch.zeros(2 * c, device=cuda)]
+    skips = torch.zeros(2, t, c, device=cuda)
+    for i in (0, 3):
+        grad_args = list(args)
+        grad_args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            dk.diffnet_layer(*grad_args, skips, dilation=2, first=True)
+        with torch.no_grad():
+            dk.diffnet_layer(*grad_args, skips, dilation=2, first=True)
+
+
+class _Given:
+    """Hands out one given draw."""
+
+    def __init__(self, z):
+        self.z = z
+
+    def normal(self, shape):
+        assert tuple(shape) == tuple(self.z.shape)
+        return self.z
+
+
+@pytest.mark.cuda
+def test_recipe_request_on_the_kernel_matches_the_module_path(cuda):
+    """One request at the recipe's widths (seeded random weights, seeded
+    draws) runs every residual layer on the kernel: 2 x 100 x 10 F0 and
+    100 x 20 mel launches.  At the first, a middle and the last call of
+    each denoiser, the call again on the module path: the output within
+    the benchmark's ``f0_net`` / ``mel_net`` limits (2.5e-4 / 2e-4 of its
+    max) and the Gaussian step taken from each within ``f0_step`` /
+    ``mel_step``'s 3e-6."""
+    from stylesinger_torch.config import load_config
+    from stylesinger_torch.inference import StyleSingerInfer
+    from stylesinger_torch.models import diffusion as diff
+
+    cfg = load_config(recipe="stylesinger")
+    req = dict(ph="a b c d e f", notes=[60, 62, 0, 64, 65, 67],
+               notes_duration=[0.4, 0.3, 0.2, 0.5, 0.3, 0.6],
+               note_types=[1] * 6)
+    infer = StyleSingerInfer(cfg, phone_list=sorted(req["ph"].split()),
+                             device=cuda)
+    infer.init_random(3)
+    with torch.no_grad():
+        infer.model.dur_predictor.out.bias.fill_(math.log1p(60.0))
+    model = infer.model
+    calls = {"f0": [], "mel": []}
+
+    def keep(kind):
+        def hook(module, args, out):
+            calls[kind].append((tuple(a.clone() for a in args), out.clone()))
+        return hook
+
+    hooks = [model.gm_diffnet.register_forward_hook(keep("f0")),
+             model.postdiff.register_forward_hook(keep("mel"))]
+    t = np.arange(48000 * 3) / 48000
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    dk.counter.reset()
+    try:
+        infer.forward_model(infer.preprocess_input(dict(req, ref_audio=wav)),
+                            noise=Noise(5, cuda))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert dk.counter.count == 2 * 100 * 10 + 100 * 20
+    assert len(calls["f0"]) == len(calls["mel"]) == 100
+    limits = {"f0": (model.gm_diffnet, model.f0_sched, 2.5e-4),
+              "mel": (model.postdiff, model.mel_sched, 2e-4)}
+    for kind, (net, sched, net_limit) in limits.items():
+        for i in (0, 50, 99):
+            args, out = calls[kind][i]
+            before = dk.counter.count
+            with torch.enable_grad():  # the module path: autograd records
+                want = net(*args).detach()
+            assert dk.counter.count == before
+            assert _rel(out, want) <= net_limit, (kind, i, _rel(out, want))
+            x, step = args[0], args[2 if kind == "f0" else 1]
+            z = torch.randn(x.shape, generator=torch.Generator(
+                device=cuda).manual_seed(i), device=cuda)
+            nxt = [diff.gaussian_p_sample(sched, x, step,
+                                          o[..., :x.shape[-1]], _Given(z))
+                   for o in (out, want)]
+            assert _rel(*nxt) <= 3e-6, (kind, i, _rel(*nxt))
+
+
+@pytest.mark.cuda
+def test_graphed_train_steps_launch_no_diffnet_kernel(cuda, tmp_path):
+    """At widths the kernel takes (64 channels), a graphed train step's
+    capture and an eager step run every residual layer on the module
+    path: autograd records the weights."""
+    from stylesinger_torch.models.stylesinger import StyleSinger
+    from stylesinger_torch.training import step as ts
+    from stylesinger_torch.training.trainer import Trainer
+
+    cfg = tiny_test_config(forcing=2, rq_start=-1, diff_start=-1,
+                           steps_per_dispatch=2, residual_channels=64,
+                           f0_residual_channels=64, f0_residual_layers=2,
+                           residual_layers=2)
+    trainer = Trainer(StyleSinger(cfg, 20), cfg, str(tmp_path), device=cuda)
+    stacked, _ = trainer._stack_batches([_tiny_train_batch(cfg)])
+    state = ts.init_state(StyleSinger(cfg, 20).to(cuda), cfg)
+    dk.counter.reset()
+    scan = ts.make_train_scan(cfg)
+    m = scan(state, stacked, [0, 0], ts.phase_for_step(0, cfg))
+    ts.train_step(state, {k: v[0] for k, v in stacked.items()},
+                  ts.phase_for_step(2, cfg), cfg)
+    torch.cuda.synchronize()
+    assert len(scan.graphs.capture_seconds) == 1
+    assert all(torch.isfinite(v).all() for v in m.values())
+    assert dk.counter.count == 0
 
 
 def _tiny_train_batch(cfg, seed=0, n=4):
@@ -988,7 +1145,7 @@ def test_graph_captures_share_one_stream(cuda):
     assert torch.cuda.memory_allocated() == before
 
 
-def _tiny_synth(device, seed=0):
+def _tiny_synth(device, seed=0, **overrides):
     """A tiny bf16-vocoder synthesizer exported on ``device`` (mrf_block 64:
     its stages of 128 samples and more take the MRF operator), with its
     weights, batch and seeded draws."""
@@ -998,7 +1155,7 @@ def _tiny_synth(device, seed=0):
 
     cfg = tiny_test_config(hop_size=64, mrf_block=64, max_frames=32,
                            f0_speedup=2, dpm_steps=2,
-                           vocoder_compute_dtype="bfloat16")
+                           vocoder_compute_dtype="bfloat16", **overrides)
     params, voc, batch = _init_variables(cfg, 12, 1, 6, 24, device, seed)
     ep = export_synthesizer(cfg, 12, batch=1, t_txt=6, t_ref=24,
                             max_frames=32, device=device, variables=params,
@@ -1032,6 +1189,29 @@ def test_exported_synthesizer_on_the_card_launches_the_kernel(cuda,
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     assert torch.equal(out[3], live[3])
+
+
+@pytest.mark.cuda
+def test_exported_synthesizer_launches_the_diffnet_operator(cuda):
+    """At 64 residual channels (widths the kernel takes) the artifact
+    exported on cuda holds one ``stylesinger::diffnet_layer`` node per
+    residual layer call, and a call launches each once; it equals the live
+    function, which runs the same kernel."""
+    from stylesinger_torch.serving import make_synthesize_fn, synthesize
+
+    wide = dict(residual_channels=64, f0_residual_channels=64)
+    cfg, ep, params, voc, batch, noise = _tiny_synth(cuda, **wide)
+    ops = [n for n in ep.graph.nodes if n.op == "call_function" and
+           n.target == torch.ops.stylesinger.diffnet_layer.default]
+    assert len(ops) > 0
+    dk.counter.reset()
+    out = synthesize(ep, params, voc, batch, noise)
+    torch.cuda.synchronize()
+    assert dk.counter.count == len(ops)
+    with torch.no_grad():
+        live = make_synthesize_fn(cfg, 12, 32)(params, voc, batch, noise)
+    for a, b in zip(out[:3], live[:3]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

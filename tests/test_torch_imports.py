@@ -42,6 +42,7 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     names = out.stdout.split()
     for expected in ("stylesinger_torch.inference", "stylesinger_torch.convert",
+                     "stylesinger_torch.kernels.diffnet",
                      "stylesinger_torch.kernels.mel",
                      "stylesinger_torch.kernels.mrf",
                      "stylesinger_torch.models.hifigan",
@@ -94,7 +95,7 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
 
 def test_cuda_sources_have_a_plain_c_interface():
     sources = sorted((REPO / "stylesinger_torch" / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["mel.cu", "mrf.cu"]
+    assert [s.name for s in sources] == ["diffnet.cu", "mel.cu", "mrf.cu"]
     for src in sources:
         text = src.read_text()
         assert "torch/extension.h" not in text, src
